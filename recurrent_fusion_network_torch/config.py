@@ -1,0 +1,91 @@
+"""Options for the port's serving entry point.
+
+The port's own copy of the parts of ``recurrent_fusion_network_tpu/
+config.py`` and ``eval.py::merge_checkpoint_opt`` that serving reads: the
+flag names and defaults of the model options, the serving options of the
+root ``serve.py``, and the checkpoint merge (the CLI wins for runtime
+knobs, the checkpoint's saved opt for the architecture).
+"""
+
+from __future__ import annotations
+
+import argparse
+from types import SimpleNamespace
+from typing import Optional, Sequence
+
+
+def _defaults() -> dict:
+    return dict(
+        # model options (the JAX package's defaults; a checkpoint's saved
+        # opt overrides them)
+        caption_model="recurrent_fusion_model",
+        rnn_size=512,
+        input_encoding_size=512,
+        att_hid_size=512,
+        num_review_steps=8,
+        num_review_steps_0=8,
+        top_words_count=1000,
+        maxout=0,
+        review_maxout=0,
+        fusion_maxout=0,
+        reference_parity=0,
+        tied_att_keys=-1,  # -1 = auto: tied unless --reference_parity
+        low_rank_ctx=0,
+        beam_size=1,
+        # checkpoint location
+        model_path="",
+        checkpoint_path="checkpoint",
+        load_model_id="",
+        rl_prefix=0,  # serve the rl_-prefixed (SCST) checkpoint
+        rank=0,  # checkpoint rank (fleet seed index)
+        # serving
+        host="0.0.0.0",
+        port=8080,
+        serve_batch_size=16,
+        serve_depth=2,
+        drain_timeout=30.0,
+        serve_dtype="bfloat16",
+        device="cuda",
+    )
+
+
+CHOICES = {"serve_dtype": ("bfloat16", "float32")}
+
+# flags the CLI keeps even when the checkpoint's saved opt has them
+# (eval.py CLI_WINS, as far as serving reads them)
+CLI_WINS = {"beam_size", "model_path", "load_model_id", "rl_prefix", "rank",
+            "host", "port", "serve_batch_size", "serve_depth", "drain_timeout",
+            "serve_dtype", "device", "checkpoint_path"}
+
+
+class Options(SimpleNamespace):
+    """Mutable option namespace with the JAX package's attribute names."""
+
+    def __init__(self, **overrides):
+        super().__init__(**_defaults())
+        for k, v in overrides.items():
+            setattr(self, k, v)
+
+
+def parse_opt(argv: Optional[Sequence[str]] = None) -> Options:
+    parser = argparse.ArgumentParser(description="RFNet caption serving (PyTorch)")
+    for key, value in _defaults().items():
+        parser.add_argument(f"--{key}", type=type(value), default=value,
+                            choices=CHOICES.get(key))
+    return Options(**vars(parser.parse_args(argv)))
+
+
+def merge_checkpoint_opt(opt, saved: dict):
+    """Adopt a checkpoint's saved opt (eval.py::merge_checkpoint_opt)."""
+    for k, v in saved.items():
+        if k in CLI_WINS or k in ("vocab_size", "seq_length", "start_from",
+                                  "current_lr"):
+            continue
+        setattr(opt, k, v)
+    # checkpoints from before these flags existed hold the reference
+    # (untied) architecture and no value projection
+    if "tied_att_keys" not in saved:
+        opt.tied_att_keys = 0
+    if "low_rank_ctx" not in saved:
+        opt.low_rank_ctx = 0
+    return opt
