@@ -23,7 +23,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
               after (64 launches of additive_attention_fwd per batch);
   5. throughput: B = 512 beam-3 bf16 decodes through pipelined_map, one of
               them queued under CUDA sync debug mode "error" (no host sync
-              inside the decode), then one batch under torch.profiler.
+              inside the decode), then one batch under torch.profiler;
+  6. train:   the XE train step. additive_attention_bwd against its plain
+              version at every training call site (5 stage-I encoders,
+              stage II with G = 5, the decoder; 512 rows; f32 and bf16),
+              with errors, a bitwise repeat, device and event times and the
+              bound; an f32 flagship step at 16 rows, 3 Adam steps with the
+              kernels vs with the plain versions patched in (loss and params
+              within tolerance; every grad leaf finite and non-zero but the
+              score biases); bf16 flagship steps at 512 rows through
+              train() on a fixed batch of seeded random numpy features, with
+              the launch counters reset just before and read just after
+              (65 + 65 launches per step), a falling loss, step time,
+              rows/s, peak memory, and one profiled step.
 The line before the last is the kernels JSON, the last line the device JSON.
 """
 
@@ -31,6 +43,7 @@ from __future__ import annotations
 
 import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -46,6 +59,11 @@ BATCH, BEAM, HID = 512, 3, 512
 SERVE_BATCH, N_REQUESTS = 16, 36  # 36 = 2 full batches + a partial one
 TOL = {"float32": dict(rtol=1e-4, atol=1e-4),  # sum order, tanhf ulps
        "bfloat16": dict(rtol=1e-2, atol=1.6e-2)}  # one bf16 ulp of |z| < 4
+# backward: |kernel - plain| <= rtol * |plain| + atol * max|plain| per output
+# (dbv, whose true value is 0, against max|dv|): f32 sums of up to 100k terms
+# in another order; bf16 outputs rounded once on each side, ~2.5 ulps
+BWD_TOL = {"float32": dict(rtol=1e-4, atol=1e-4), "bfloat16": dict(rtol=1e-2, atol=1e-2)}
+TRAIN_ROWS, SMALL_ROWS, TRAIN_STEPS, LR = 512, 16, 20, 5e-4
 
 
 def log(msg):
@@ -99,24 +117,28 @@ def event_ms(torch, fn, input_sets, reps=20, repeats=5):
     return statistics.median(out)
 
 
-def device_ms(torch, fn, input_sets, reps=20):
+def device_ms(torch, fn, input_sets, reps=20, attempts=3):
     """Mean device time per call: the summed durations of the device
     activities (kernels, copies) that `reps` calls put on the card, from
-    torch.profiler, so the host's launch gaps are not counted."""
+    torch.profiler, so the host's launch gaps are not counted. None when
+    the profiler records no device activity in `attempts` tries (it does so
+    now and then on this machine); callers then time with CUDA events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn(*input_sets[0])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(reps):
-            fn(*input_sets[i % len(input_sets)])
-        torch.cuda.synchronize()
-    total_us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    if total_us <= 0:
-        raise AssertionError("the profiler recorded no device time")
-    return total_us / reps / 1e3
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(reps):
+                fn(*input_sets[i % len(input_sets)])
+            torch.cuda.synchronize()
+        total_us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        if total_us > 0:
+            return total_us / reps / 1e3
+    log("timing: the profiler recorded no device time; CUDA events instead")
+    return None
 
 
 def check_attention_kernel(torch, aa, sites):
@@ -151,9 +173,10 @@ def check_attention_kernel(torch, aa, sites):
             ops = G * N * A * (4 * HID + 2 * D + 3)
             n_sets = max(1, min(8, -(-200_000_000 // nbytes)))
             sets = [ins] + [make() for _ in range(n_sets - 1)]
-            ms = device_ms(torch, aa.additive_attention, sets)
-            plain_ms = device_ms(torch, aa.additive_attention_ref, sets, reps=5)
             ev_ms = event_ms(torch, aa.additive_attention, sets)
+            ms = device_ms(torch, aa.additive_attention, sets) or ev_ms
+            plain_ms = (device_ms(torch, aa.additive_attention_ref, sets, reps=5)
+                        or event_ms(torch, aa.additive_attention_ref, sets, reps=5))
             bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
             row = dict(site=name, dtype=dname, shape=[G, N, A, HID, D],
                        launches_per_batch=per_batch, max_abs_err=err, max_rel_err=rel,
@@ -247,7 +270,7 @@ def serve_over_http(torch, model, params, counters):
 
         threads = [threading.Thread(target=client, args=(i,)) for i in range(N_REQUESTS)]
         for c in counters:
-            c.launches = 0  # main path starts here
+            c.launches = c.bwd_launches = 0  # main path starts here
         t0 = time.perf_counter()
         for t in threads:
             t.start()
@@ -255,6 +278,8 @@ def serve_over_http(torch, model, params, counters):
             t.join(timeout=600)
         wall = time.perf_counter() - t0
         launches = {c.__name__.rsplit(".", 1)[-1]: c.launches for c in counters}
+        if any(c.bwd_launches for c in counters):
+            raise AssertionError("serving launched the backward kernel")
         stats = dict(svc.server.stats)
     finally:
         if httpd is not None:
@@ -346,6 +371,396 @@ def throughput(torch, model, params, card):
     return rate
 
 
+def train_sites(model, rows):
+    """(name, G, N, A, D, values need a grad, launches per train step) of
+    every attention call site of the tied-keys XE step."""
+    S0, S, T = model.num_review_steps_0, model.num_review_steps, model.seq_length + 1
+    sites = [(f"stage1_enc{j}", 1, rows, a, d, False, S0)
+             for j, (a, d) in enumerate(zip(model.att_nums, model.att_feat_sizes))]
+    sites.append(("stage2", model.num_feat_array, rows, S, model.rnn_size, True, S))
+    sites.append(("decoder", 1, rows, S, model.rnn_size, True, T))
+    return sites
+
+
+def _bwd_err(got, ref, tol):
+    """(max abs err, max err / max|ref|, within tolerance) over the outputs
+    (dq, dkeys, dvalues, dv, dbv); dbv is held against max|dv|."""
+    abs_err, rel_err, ok = 0.0, 0.0, True
+    dv_scale = ref[3].float().abs().max().item()
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if r is None:
+            ok = ok and g is None
+            continue
+        g, r = g.float(), r.float()
+        scale = max(r.abs().max().item(), dv_scale if i == 4 else 0.0, 1e-30)
+        err = (g - r).abs()
+        abs_err = max(abs_err, err.max().item())
+        rel_err = max(rel_err, err.max().item() / scale)
+        ok = ok and bool((err <= tol["rtol"] * r.abs() + tol["atol"] * scale).all())
+    return abs_err, rel_err, ok
+
+
+def check_attention_backward(torch, aa, sites):
+    """additive_attention_bwd vs additive_attention_bwd_ref at every training
+    site, f32 and bf16: errors, a bitwise repeat, device / event / plain ms
+    and the bound. dz is random, w the forward's, the incoming grad of w None
+    (the cells discard w)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    results = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        for name, G, N, A, D, need_dvalues, per_step in sites:
+            def make():
+                def r(*shape, scale=1.0):
+                    x = torch.randn(*shape, generator=gen, device=DEVICE) * scale
+                    return x.to(dtype)
+                q, keys, v, bv, values = (r(G * N, HID), r(G * N, A, HID),
+                                          r(G, HID, scale=0.06), r(G, scale=0.06),
+                                          r(G * N, A, D))
+                _, w = aa.additive_attention_ref(q, keys, v, bv, values)
+                return (r(G * N, D), None, q, keys, v, values, w)
+
+            def kernel(*ins):
+                return aa.additive_attention_bwd(*ins, need_dvalues=need_dvalues)
+
+            def plain(*ins):
+                return aa.additive_attention_bwd_ref(*ins, need_dvalues=need_dvalues)
+
+            ins = make()
+            got = kernel(*ins)
+            again = kernel(*ins)
+            torch.cuda.synchronize()
+            repeat = all(a is b or torch.equal(a, b) for a, b in zip(got, again))
+            ref = plain(*ins)
+            tol = BWD_TOL[dname]
+            err, rel, ok = _bwd_err(got, ref, tol)
+            esize = ins[0].element_size()
+            n_in = sum(t.numel() for t in ins if t is not None)
+            n_out = sum(t.numel() for t in got if t is not None)
+            nbytes = (n_in + n_out) * esize
+            ops = G * N * A * (9 * HID + (3 if need_dvalues else 2) * D)
+            n_sets = max(1, min(8, -(-200_000_000 // nbytes)))
+            sets = [ins] + [make() for _ in range(n_sets - 1)]
+            ev_ms = event_ms(torch, kernel, sets)
+            ms = device_ms(torch, kernel, sets) or ev_ms
+            plain_ms = (device_ms(torch, plain, sets, reps=5)
+                        or event_ms(torch, plain, sets, reps=5))
+            bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+            row = dict(site=name, dtype=dname, shape=[G, N, A, HID, D],
+                       dvalues=need_dvalues, launches_per_step=per_step,
+                       max_abs_err=err, max_rel_err=rel, ok=ok, bitwise_repeat=repeat,
+                       ms=ms, plain_ms=plain_ms, event_ms=ev_ms,
+                       bound_ms=max(bytes_ms, ops_ms),
+                       bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                       bytes=nbytes)
+            log(f"kernel additive_attention_bwd {name} {dname} G={G} N={N} A={A} D={D} "
+                f"dvalues={need_dvalues}: max_abs_err {err:.3e} max_rel_err {rel:.3e} "
+                f"(rtol {tol['rtol']}, atol {tol['atol']} x max|plain|) ok={ok} "
+                f"bitwise repeat={repeat} ms {ms:.4f} plain_ms {plain_ms:.4f} "
+                f"bound_ms {row['bound_ms']:.4f} (events incl. launch gaps: {ev_ms:.4f} ms)")
+            if not (ok and repeat):
+                raise AssertionError(f"additive_attention_bwd disagrees at {name} {dname}")
+            results.append(row)
+            del sets, ins, got, again, ref
+    return results
+
+
+class FixedBatchLoader:
+    """A loader for train(): the same batch of seeded random numpy arrays at
+    flagship widths on every call, in the JAX loader's batch-dict layout."""
+
+    def __init__(self, model, rows, seed):
+        import numpy as np
+
+        rng = np.random.default_rng(seed)
+        L, V, W = model.seq_length, model.vocab_size, model.top_words_count
+        self.vocab_size, self.seq_length = V, L
+        # 4 captions over 50 words, each row one of them, its top words the
+        # caption's words: a batch the model can fit, so the loss must fall
+        caps = [rng.integers(1, 51, int(rng.integers(8, L + 1))) for _ in range(4)]
+        labels = np.zeros((rows, L + 2), np.int64)
+        masks = np.zeros((rows, L + 2), np.float32)
+        top = np.full((rows, W), -1, np.int64)
+        for r in range(rows):
+            cap = caps[r % 4]
+            labels[r, 1:len(cap) + 1] = cap
+            masks[r, :len(cap) + 2] = 1.0
+            words = np.unique(cap - 1)
+            top[r, :len(words)] = words
+        self.batch = {
+            "fc_feats_array": [rng.standard_normal((rows, d), np.float32)
+                               for d in model.fc_feat_sizes],
+            "att_feats_array": [rng.standard_normal((rows, a, d), np.float32)
+                                for a, d in zip(model.att_nums, model.att_feat_sizes)],
+            "labels": labels, "masks": masks, "top_words": top,
+            "bounds": {"it_pos_now": 0, "it_max": rows, "wrapped": False},
+        }
+
+    def get_batch(self, split):
+        if split != "train":
+            raise ValueError(f"only the train split: {split}")
+        return self.batch
+
+
+class GradSpy:
+    """Wraps the port's optimizer and keeps the grads of its first update."""
+
+    def __init__(self, tx):
+        self.tx, self.grads = tx, None
+
+    def init(self, params):
+        return self.tx.init(params)
+
+    def update(self, grads, state, params):
+        if self.grads is None:
+            from recurrent_fusion_network_torch.ops.initializers import tree_map
+
+            self.grads = tree_map(lambda g: g.detach().clone(), grads)
+        return self.tx.update(grads, state, params)
+
+
+def _paths(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, f"{path}[{k!r}]")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _paths(v, f"{path}[{i}]")
+    else:
+        yield path, tree
+
+
+def _score_bias(path):
+    # softmax is shift-invariant: the true gradient of every att_h_2_out.b
+    # is 0 and both paths return rounding noise, which Adam turns into steps
+    # of up to lr
+    return "'att_h_2_out']['b']" in path
+
+
+def check_grads(torch, grads, what):
+    """Every grad leaf finite, and non-zero except the score biases."""
+    n, bad = 0, []
+    for path, g in _paths(grads):
+        n += 1
+        if not bool(torch.isfinite(g).all()) or (
+                not _score_bias(path) and not bool((g != 0).any())):
+            bad.append(path)
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} grad leaves zero or not finite, e.g. {bad[:5]}")
+    log(f"train {what}: all {n} grad leaves finite and non-zero (score biases: finite)")
+    return n
+
+
+def train_opts(model, **over):
+    from recurrent_fusion_network_torch.config import Options
+
+    feats = [{"fc_feat_size": f, "att_feat_size": a, "att_num": n}
+             for f, a, n in zip(model.fc_feat_sizes, model.att_feat_sizes, model.att_nums)]
+    return Options(caption_model="recurrent_fusion_model", feat_array_info=feats,
+                   rnn_size=model.rnn_size, input_encoding_size=model.input_encoding_size,
+                   att_hid_size=model.att_hid_size, num_review_steps=model.num_review_steps,
+                   num_review_steps_0=model.num_review_steps_0,
+                   top_words_count=model.top_words_count, tied_att_keys=1,
+                   vocab_size=model.vocab_size, seq_length=model.seq_length,
+                   device=DEVICE, seed=0, losses_log_every=1,
+                   save_checkpoint_every=10 ** 9, **over)
+
+
+def check_train_kernel_vs_plain(torch, model):
+    """f32 flagship step at SMALL_ROWS: 3 Adam steps with the kernels and 3
+    with the plain versions patched in, from the same params. Held: the
+    first step's grads leaf by leaf (rtol 2e-3 / atol 2e-5, score biases
+    atol only), the 3 losses (rtol 1e-5), and the params after 3 steps:
+    every element within 2 * lr * 3 (the most an Adam step whose sign flips
+    can move it; elements whose grad is at rounding level get +-lr in
+    either run) and all but a share 1e-4 within rtol 1e-4 / atol 1e-5."""
+    from unittest import mock
+
+    from recurrent_fusion_network_torch.kernels import additive_attention as aa
+    from recurrent_fusion_network_torch.ops import attention
+    from recurrent_fusion_network_torch.ops.initializers import tree_map
+    from recurrent_fusion_network_torch.training.criterion import make_criterion
+    from recurrent_fusion_network_torch.training.optim import make_optimizer
+    from recurrent_fusion_network_torch.training.train_loop import (device_batch,
+                                                                    make_train_step)
+
+    opt = train_opts(model)
+    batch = device_batch(FixedBatchLoader(model, SMALL_ROWS, 6).get_batch("train"), DEVICE)
+    base = model.init_params(torch.Generator(device=DEVICE).manual_seed(7), device=DEVICE)
+    runs = {}
+    for path in ("kernel", "plain"):
+        params = tree_map(torch.clone, base)
+        spy = GradSpy(make_optimizer(opt))
+        step = make_train_step(model, make_criterion(opt), spy)
+        state = spy.init(params)
+        losses = []
+        with mock.patch.object(attention, "additive_attention",
+                               aa.additive_attention if path == "kernel"
+                               else aa.additive_attention_ref):
+            before = (aa.launches, aa.bwd_launches)
+            for _ in range(3):
+                params, state, loss = step(params, state, *batch, LR, 0.0, None)
+                losses.append(loss.item())
+            used = (aa.launches - before[0], aa.bwd_launches - before[1])
+        if path == "kernel":
+            check_grads(torch, spy.grads, "f32 kernel step")
+        runs[path] = (losses, params, used, spy.grads)
+        del spy, state
+    (kl, kp, kused, kg), (pl, pp, pused, pg) = runs["kernel"], runs["plain"]
+    if kused != (3 * 65, 3 * 65) or pused != (0, 0):
+        raise AssertionError(f"launches kernel path {kused}, plain path {pused}")
+    bad_grads, worst_grad = [], 0.0
+    for (path, a), (_, b) in zip(_paths(kg), _paths(pg)):
+        rtol = 0.0 if _score_bias(path) else 2e-3
+        share = ((a - b).abs() / (2e-5 + rtol * b.abs())).max().item()
+        worst_grad = max(worst_grad, share)
+        if share > 1:
+            bad_grads.append(path)
+    n_out, n_all, max_diff, max_bias = 0, 0, 0.0, 0.0
+    for (path, a), (_, b) in zip(_paths(kp), _paths(pp)):
+        d = (a - b).abs()
+        n_all += d.numel()
+        if _score_bias(path):
+            max_bias = max(max_bias, d.max().item())
+        else:
+            max_diff = max(max_diff, d.max().item())
+            n_out += int((d > 1e-5 + 1e-4 * b.abs()).sum())
+    loss_ok = all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(kl, pl))
+    log(f"train f32 B={SMALL_ROWS}, 3 Adam steps: losses kernel {kl} plain {pl} (rtol "
+        f"1e-5: {loss_ok}); first-step grads worst share of rtol 2e-3 / atol 2e-5 "
+        f"{worst_grad:.3f}; params: {n_out} of {n_all} elements outside rtol 1e-4 / "
+        f"atol 1e-5, max abs diff {max_diff:.3e}, score biases {max_bias:.3e} (bound "
+        f"2 * lr * 3 = {6 * LR:.1e}); launches kernel path {kused}, plain path {pused}")
+    if bad_grads or not loss_ok or max(max_diff, max_bias) > 6 * LR \
+            or n_out > 1e-4 * n_all:
+        raise AssertionError(f"f32 kernel and plain steps differ; grads at {bad_grads[:5]}")
+    del runs, kp, pp, kg, pg, base
+    torch.cuda.empty_cache()
+    return dict(f32_losses_kernel=kl, f32_losses_plain=pl, f32_grad_worst_share=worst_grad,
+                f32_params_outside=n_out, f32_params=n_all, f32_params_max_diff=max_diff)
+
+
+def train_bf16(torch, model, card, counters):
+    """bf16 flagship steps at TRAIN_ROWS through train(): launch counts, a
+    falling loss, step time, rows/s, peak memory; then one profiled step."""
+    from recurrent_fusion_network_torch.training.train_loop import train
+
+    loader = FixedBatchLoader(model, TRAIN_ROWS, 8)
+    opt = train_opts(model, dtype="bfloat16")
+    stamps = []
+
+    def log_fn(line):
+        stamps.append(time.perf_counter())
+        log(f"train: {line}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = c.bwd_launches = 0  # main path starts here
+    t0 = time.perf_counter()
+    infos = train(opt, loader, max_iterations=TRAIN_STEPS, log_fn=log_fn)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"additive_attention_fwd": sum(c.launches for c in counters),
+                "additive_attention_bwd": sum(c.bwd_launches for c in counters)}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [infos["loss_history"][i] for i in range(TRAIN_STEPS)]
+    if launches != {k: 65 * TRAIN_STEPS for k in launches}:
+        raise AssertionError(f"launches {launches} over {TRAIN_STEPS} steps "
+                             f"(expected 65 + 65 per step)")
+    falls = sum(b < a for a, b in zip(losses, losses[1:]))
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0] \
+            or falls < 0.75 * (len(losses) - 1):
+        raise AssertionError(f"bf16 loss did not fall: {losses}")
+    # log line k comes after loss k is read: the window from line 2 to the
+    # last is steady state (the first two lines carry warm-up)
+    steady = [b - a for a, b in zip(stamps[2:], stamps[3:])]
+    step_ms = (stamps[-1] - stamps[2]) / len(steady) * 1e3
+    log(f"train bf16 B={TRAIN_ROWS}: {TRAIN_STEPS} steps through train() in {wall:.3f} s "
+        f"(params init included); steady step {step_ms:.2f} ms (mean over the last "
+        f"{len(steady)}; between log lines min {min(steady) * 1e3:.2f}, max "
+        f"{max(steady) * 1e3:.2f}), "
+        f"{TRAIN_ROWS / step_ms * 1e3:.1f} rows/s; peak memory {peak_gb:.2f} GB; "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; launches {launches} "
+        f"(65 + 65 per step) on {card}")
+    params = infos["final_params"]
+    state = infos["final_opt_state"]
+    del infos
+    prof = profile_train_step(torch, model, opt, loader, params, state)
+    return dict(launches=launches, step_ms=step_ms, rows_per_s=TRAIN_ROWS / step_ms * 1e3,
+                peak_gb=peak_gb, losses=losses, **prof)
+
+
+def profile_train_step(torch, model, opt, loader, params, state):
+    """One more bf16 step as train() runs it (batch fetch, copy to the card,
+    the step, the loss read) under torch.profiler, after a step whose grads
+    are checked leaf by leaf."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from recurrent_fusion_network_torch.training.criterion import make_criterion
+    from recurrent_fusion_network_torch.training.optim import make_optimizer
+    from recurrent_fusion_network_torch.training.train_loop import (device_batch,
+                                                                    make_train_step)
+
+    spy = GradSpy(make_optimizer(opt))
+    step = make_train_step(model, make_criterion(opt), spy, torch.bfloat16)
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+
+    def one():
+        nonlocal params, state
+        batch = device_batch(loader.get_batch("train"), DEVICE, torch.bfloat16)
+        params, state, loss = step(params, state, *batch, LR, 0.0, gen)
+        return float(loss)
+
+    one()
+    check_grads(torch, spy.grads, f"bf16 step B={TRAIN_ROWS}")
+    spy.grads = None
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        one()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        log("train profile: the profiler recorded no device events; not measured")
+        return dict(profile_wall_ms=wall_ms)
+    busy, cur_s, cur_e, by_name = 0.0, None, None, {}
+    for s0, e0, name in spans:
+        by_name[name] = by_name.get(name, 0.0) + (e0 - s0)
+        if cur_e is None or s0 > cur_e:
+            busy += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = s0, e0
+        else:
+            cur_e = max(cur_e, e0)
+    busy = (busy + cur_e - cur_s) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    log(f"train profile: one bf16 B={TRAIN_ROWS} step (batch copy included): wall "
+        f"{wall_ms:.2f} ms, device busy {busy:.2f} ms, idle share {1 - busy / wall_ms:.3f}, "
+        f"{len(spans)} device events")
+    for name, us in top:
+        log(f"train profile:   {us / 1e3:8.3f} ms  {name[:110]}")
+
+    # the same step with the batch already on the card: host dispatch and
+    # device compute without the copy
+    batch = device_batch(loader.get_batch("train"), DEVICE, torch.bfloat16)
+    n = 5
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(n):
+        params, state, loss = step(params, state, *batch, LR, 0.0, gen)
+    torch.cuda.synchronize()
+    resident_ms = (time.perf_counter() - t1) / n * 1e3
+    copy_ms = by_name.get("Memcpy HtoD (Pageable -> Device)", 0.0) / 1e3
+    log(f"train: {n} bf16 B={TRAIN_ROWS} steps with the batch already on the card: "
+        f"{resident_ms:.2f} ms per step; the profiled step's pageable host-to-device "
+        f"copy of the batch: {copy_ms:.2f} ms")
+    return dict(profile_wall_ms=wall_ms, profile_busy_ms=busy,
+                profile_events=len(spans), resident_step_ms=resident_ms,
+                copy_ms=copy_ms, profile_top=[(name[:80], us / 1e3) for name, us in top])
+
+
 def main():
     # ---- 1. device
     import torch
@@ -392,15 +807,30 @@ def main():
 
     # ---- 5. throughput
     throughput(torch, model, params, card)
+    del params
+    torch.cuda.empty_cache()
+
+    # ---- 6. train
+    tsites = train_sites(model, TRAIN_ROWS)
+    if sum(s[-1] for s in tsites) != 65:
+        raise AssertionError(f"train call sites {tsites} do not add up to 65 per step")
+    bwd_rows = check_attention_backward(torch, aa, tsites)
+    f32_check = check_train_kernel_vs_plain(torch, model)
+    trained = train_bf16(torch, model, card, [aa])
 
     bf16 = [r for r in rows if r["dtype"] == "bfloat16"]
     per_batch = lambda key: sum(r[key] * r["launches_per_batch"] for r in bf16)  # noqa: E731
+    bwd16 = [r for r in bwd_rows if r["dtype"] == "bfloat16"]
+    per_step = lambda key: sum(r[key] * r["launches_per_step"] for r in bwd16)  # noqa: E731
     kernels = [{
         "name": "additive_attention_fwd",
         "route": "cuda",
         "source": "recurrent_fusion_network_torch/csrc/additive_attention.cu",
         "replaces": "recurrent_fusion_network_tpu/ops/attention.py:46",
-        "launches": launches["additive_attention"],
+        "launches": launches["additive_attention"]
+        + trained["launches"]["additive_attention_fwd"],
+        "launches_by_path": {"serve": launches["additive_attention"],
+                             "train": trained["launches"]["additive_attention_fwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         # per beam-3 bf16 batch at B = 512: the sum over its 64 launches
         "ms": per_batch("ms"),
@@ -410,7 +840,27 @@ def main():
         "library_ms": None,  # no single PyTorch call computes additive attention
         "ok": all(r["ok"] for r in rows),
         "sites": rows,
+    }, {
+        "name": "additive_attention_bwd",
+        "route": "cuda",
+        "source": "recurrent_fusion_network_torch/csrc/additive_attention_bwd.cu",
+        # the gradient of attend under jax.value_and_grad in make_train_step
+        "replaces": "recurrent_fusion_network_tpu/ops/attention.py:46",
+        "launches": trained["launches"]["additive_attention_bwd"],
+        "launches_by_path": {"train": trained["launches"]["additive_attention_bwd"]},
+        "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
+        # errors relative to the largest plain value of each output
+        "max_rel_err": max(r["max_rel_err"] for r in bwd_rows),
+        # per bf16 train step at B = 512: the sum over its 65 launches
+        "ms": per_step("ms"),
+        "plain_ms": per_step("plain_ms"),
+        "bound_ms": per_step("bound_ms"),
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in bwd16) else "operations",
+        "library_ms": None,  # no single PyTorch call computes its gradient
+        "ok": all(r["ok"] and r["bitwise_repeat"] for r in bwd_rows),
+        "sites": bwd_rows,
     }]
+    log("train summary: " + json.dumps({**f32_check, **trained}))
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

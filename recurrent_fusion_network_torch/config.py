@@ -1,10 +1,12 @@
-"""Options for the port's serving entry point.
+"""Options of the port's serving and training entry points.
 
 The port's own copy of the parts of ``recurrent_fusion_network_tpu/
-config.py`` and ``eval.py::merge_checkpoint_opt`` that serving reads: the
-flag names and defaults of the model options, the serving options of the
-root ``serve.py``, and the checkpoint merge (the CLI wins for runtime
-knobs, the checkpoint's saved opt for the architecture).
+config.py`` and ``eval.py::merge_checkpoint_opt`` that serving and the XE
+train step read: the flag names and defaults of the model options, the
+serving options of the root ``serve.py`` (the serve CLI's flags), the
+training options with the JAX package's defaults (``Options`` only: the
+training CLI is not ported yet), and the checkpoint merge (the CLI wins for
+runtime knobs, the checkpoint's saved opt for the architecture).
 """
 
 from __future__ import annotations
@@ -49,6 +51,48 @@ def _defaults() -> dict:
     )
 
 
+def _train_defaults() -> dict:
+    """XE training options, the JAX package's flag names and defaults."""
+    return dict(
+        seed=100,
+        start_from=None,  # checkpoint directory to resume from
+        id="",
+        max_epochs=-1,
+        grad_clip=1.0,  # elementwise clamp of every gradient
+        drop_prob_lm=0.0,
+        drop_prob_reason=0.0,
+        drop_prob_fusion=0.0,
+        optim="adam",  # adam | sgd (rmsprop, adagrad, adadelta: not ported)
+        optim_lr=5e-4,
+        learning_rate_decay_start=1,
+        learning_rate_decay_every=3,
+        learning_rate_decay_rate=0.8,
+        optim_adam_beta1=0.9,
+        optim_adam_beta2=0.999,
+        optim_epsilon=1e-8,
+        optim_weight_decay=0.00001,
+        optim_momentum=0.0,
+        scheduled_sampling_start=-1,
+        scheduled_sampling_increase_every=5,
+        scheduled_sampling_increase_prob=0.05,
+        scheduled_sampling_max_prob=0.25,
+        use_label_smoothing=0,
+        label_smoothing_epsilon=0.1,
+        reason_weight=1.0,
+        dtype="float32",  # compute dtype: float32 | bfloat16 (mixed precision)
+        use_remat=0,
+        remat_policy="save_ctx",
+        save_checkpoint_every=5000,
+        losses_log_every=25,
+        xe_overlap=1,  # dispatch step k+1 before reading loss k
+        # set at run time (by the loader and the schedules)
+        vocab_size=None,
+        seq_length=None,
+        current_lr=None,
+        ss_prob=0.0,
+    )
+
+
 CHOICES = {"serve_dtype": ("bfloat16", "float32")}
 
 # flags the CLI keeps even when the checkpoint's saved opt has them
@@ -62,7 +106,7 @@ class Options(SimpleNamespace):
     """Mutable option namespace with the JAX package's attribute names."""
 
     def __init__(self, **overrides):
-        super().__init__(**_defaults())
+        super().__init__(**_defaults(), **_train_defaults())
         for k, v in overrides.items():
             setattr(self, k, v)
 

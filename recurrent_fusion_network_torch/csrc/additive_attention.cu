@@ -24,47 +24,20 @@
 // written back, in the input dtype. Vectorised 16-byte loads, several rows
 // per block and TMA pipelining are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFullMask = 0xffffffffu;
+using rfnet::block_reduce;
+using rfnet::from_f32;
+using rfnet::kFullMask;
+using rfnet::kThreads;
+using rfnet::kWarps;
+using rfnet::to_f32;
+
 constexpr float kNegInf = -1e9f;  // ops/attention.py NEG_INF
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's .to(bfloat16)
-}
-
-// Block-wide max (kMax) or sum; every thread gets the result. The leading
-// barrier lets `red` be reused by back-to-back calls.
-template <bool kMax>
-__device__ float block_reduce(float x, float* red) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const float y = __shfl_xor_sync(kFullMask, x, off);
-    x = kMax ? fmaxf(x, y) : x + y;
-  }
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) red[warp] = x;
-  __syncthreads();
-  x = lane < kWarps ? red[lane] : (kMax ? -INFINITY : 0.f);
-  for (int off = 16; off > 0; off >>= 1) {
-    const float y = __shfl_xor_sync(kFullMask, x, off);
-    x = kMax ? fmaxf(x, y) : x + y;
-  }
-  return x;
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)

@@ -1,10 +1,12 @@
-"""additive_attention_fwd: the additive-attention read as one CUDA kernel.
+"""The additive-attention read and its gradient as two CUDA kernels.
 
-Replaces on the TPU side ``recurrent_fusion_network_tpu/ops/attention.py::
-attend`` (XLA-fused jnp) and the attention half of the deleted Pallas kernel
-``ops/pallas_kernels.py::fused_att_lstm_step``. The kernel source,
-``csrc/additive_attention.cu``, notes what bounds it (bytes of keys and
-values) and what its design does about that.
+``additive_attention_fwd`` (``csrc/additive_attention.cu``) replaces on the
+TPU side ``recurrent_fusion_network_tpu/ops/attention.py::attend``
+(XLA-fused jnp) and the attention half of the deleted Pallas kernel
+``ops/pallas_kernels.py::fused_att_lstm_step``; ``additive_attention_bwd``
+(``csrc/additive_attention_bwd.cu``) replaces the gradient XLA derives for
+``attend`` in the XE train step. Each source notes what bounds it (bytes of
+keys and values) and what its design does about that.
 
 For row n of head group g = n // N, with rows = G * N:
   s[n, a] = sum_h tanh(keys[n, a, h] + q[n, h]) * v[g, h] + bv[g]
@@ -14,10 +16,13 @@ For row n of head group g = n // N, with rows = G * N:
 Stage II of the RFNet encoder passes its M heads as G groups in one launch;
 stage I and the decoder pass G = 1.
 
-``additive_attention`` takes f32 or bf16, accumulates in f32 and returns
-z and w in the input dtype. On a CUDA tensor it launches the kernel or
-raises; on a CPU tensor it runs ``additive_attention_ref``, the plain
-PyTorch version of the same function.
+``additive_attention`` is differentiable on every device through
+``AdditiveAttentionFn``. It takes f32 or bf16, accumulates in f32 and
+returns z and w (and, backward, every gradient) in the input dtype. On a
+CUDA tensor each direction launches its kernel or raises; on a CPU tensor
+it runs the plain PyTorch version of the same function,
+``additive_attention_ref`` forward and ``additive_attention_bwd_ref``
+backward (explicit equations, not autograd).
 """
 
 from __future__ import annotations
@@ -30,9 +35,12 @@ NEG_INF = -1e9
 MAX_SHARED_BYTES = 48 * 1024  # static launch limit (no opt-in attribute set)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# Kernel launches since the last reset (chip_smoke.py resets and reads it to
-# show that the main path went through the kernel). CPU calls do not count.
+# Kernel launches since the last reset (chip_smoke.py resets and reads them
+# to show that the main path went through the kernels). CPU calls do not
+# count. ``launches`` counts additive_attention_fwd, ``bwd_launches``
+# additive_attention_bwd.
 launches = 0
+bwd_launches = 0
 
 
 def additive_attention_ref(q, keys, v, bv, values, mask=None):
@@ -53,9 +61,11 @@ def additive_attention_ref(q, keys, v, bv, values, mask=None):
 
 
 def _check(q, keys, v, bv, values, mask):
-    ts = (q, keys, v, bv, values)
-    if q.dim() != 2 or keys.dim() != 3 or v.dim() != 2 or bv.dim() != 1 \
-            or values.dim() != 3:
+    """Validate the read's inputs (bv None: the backward, which needs none);
+    -> (rows, A, H, D, G)."""
+    ts = tuple(t for t in (q, keys, v, bv, values) if t is not None)
+    if q.dim() != 2 or keys.dim() != 3 or v.dim() != 2 or values.dim() != 3 \
+            or (bv is not None and bv.dim() != 1):
         raise ValueError(
             "additive_attention expects q (rows, H), keys (rows, A, H), "
             "v (G, H), bv (G,), values (rows, A, D); got ranks "
@@ -63,11 +73,12 @@ def _check(q, keys, v, bv, values, mask):
     rows, A, H = keys.shape
     G = v.shape[0]
     D = values.shape[2]
-    if q.shape != (rows, H) or v.shape != (G, H) or bv.shape != (G,) \
-            or values.shape[:2] != (rows, A):
+    if q.shape != (rows, H) or v.shape != (G, H) or values.shape[:2] != (rows, A) \
+            or (bv is not None and bv.shape != (G,)):
         raise ValueError(
             f"additive_attention shape mismatch: q {tuple(q.shape)}, keys "
-            f"{tuple(keys.shape)}, v {tuple(v.shape)}, bv {tuple(bv.shape)}, "
+            f"{tuple(keys.shape)}, v {tuple(v.shape)}, "
+            f"bv {None if bv is None else tuple(bv.shape)}, "
             f"values {tuple(values.shape)}")
     if min(rows, A, H, D, G) < 1 or rows % G:
         raise ValueError(
@@ -91,38 +102,148 @@ def _check(q, keys, v, bv, values, mask):
     return rows, A, H, D, G
 
 
-def _launcher():
-    """The C entry point of csrc/additive_attention.cu (built on first use)."""
+def additive_attention_bwd_ref(dz, dw, q, keys, v, values, w, mask=None, *,
+                               need_dvalues=True):
+    """Plain PyTorch version of the gradient, written out (not autograd):
+    -> (dq, dkeys, dvalues or None, dv, dbv), f32 accumulation, outputs in
+    the input dtype. dw (the incoming grad of w) may be None."""
+    G = v.shape[0]
+    rows, A, H = keys.shape
+    N = rows // G
+    dt = keys.dtype
+    dz32, q32, k32, v32, x32, w32 = (t.float() for t in (dz, q, keys, v, values, w))
+    dw32 = torch.einsum("nd,nad->na", dz32, x32)
+    if dw is not None:
+        dw32 = dw32 + dw.float()
+    ds = w32 * (dw32 - (w32 * dw32).sum(-1, keepdim=True))
+    if mask is not None:
+        ds = torch.where(mask, ds, torch.zeros_like(ds))
+    e = torch.tanh(k32.view(G, N, A, H) + q32.view(G, N, 1, H))
+    ds_g = ds.view(G, N, A)
+    dpre = ds_g[..., None] * v32.view(G, 1, 1, H) * (1 - e * e)
+    dq = dpre.sum(2).reshape(rows, H)
+    dv = torch.einsum("gna,gnah->gh", ds_g, e)
+    dbv = ds_g.sum((1, 2))
+    dvalues = torch.einsum("na,nd->nad", w32, dz32).to(dt) if need_dvalues else None
+    return dq.to(dt), dpre.reshape(rows, A, H).to(dt), dvalues, dv.to(dt), dbv.to(dt)
+
+
+def _launcher(source: str, symbol: str, n_ptrs: int):
+    """The C entry point ``symbol`` of csrc/<source>.cu (built on first use)."""
     from .build import load
 
-    fn = load("additive_attention").additive_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn = getattr(load(source), symbol)
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def additive_attention(q, keys, v, bv, values, mask=None):
-    """-> (z (rows, D), w (rows, A)); see the module docstring."""
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _cuda_device(t, what: str):
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} has no kernel for {t.device}")
+
+
+def additive_attention_fwd(q, keys, v, bv, values, mask=None):
+    """-> (z (rows, D), w (rows, A)), no autograd: the forward kernel on a
+    CUDA tensor, ``additive_attention_ref`` on a CPU tensor."""
     global launches
     rows, A, H, D, G = _check(q, keys, v, bv, values, mask)
     if q.device.type == "cpu":
         return additive_attention_ref(q, keys, v, bv, values, mask)
-    if q.device.type != "cuda":
-        raise ValueError(f"additive_attention has no kernel for {q.device}")
+    _cuda_device(q, "additive_attention_fwd")
     if (2 * H + A) * 4 > MAX_SHARED_BYTES:
         raise ValueError(
             f"additive_attention: H={H}, A={A} need more shared memory than "
             f"the kernel's {MAX_SHARED_BYTES} bytes")
-    fn = _launcher()
+    fn = _launcher("additive_attention", "additive_attention_fwd", 8)
     z = torch.empty((rows, D), dtype=q.dtype, device=q.device)
     w = torch.empty((rows, A), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), keys.data_ptr(), v.data_ptr(), bv.data_ptr(),
-                 values.data_ptr(), None if mask is None else mask.data_ptr(),
-                 z.data_ptr(), w.data_ptr(), rows, rows // G, A, H, D,
-                 _DTYPE_CODES[q.dtype], stream)
+                 values.data_ptr(), _ptr(mask), z.data_ptr(), w.data_ptr(),
+                 rows, rows // G, A, H, D, _DTYPE_CODES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"additive_attention_fwd launch failed: CUDA error {err}")
     launches += 1
     return z, w
+
+
+def additive_attention_bwd(dz, dw, q, keys, v, values, w, mask=None, *,
+                           need_dvalues=True):
+    """-> (dq, dkeys, dvalues or None, dv, dbv): the backward kernel on a
+    CUDA tensor, ``additive_attention_bwd_ref`` on a CPU tensor. dz (rows,
+    D) and w (rows, A) as the forward gave them; dw may be None."""
+    global bwd_launches
+    rows, A, H, D, G = _check(q, keys, v, None, values, mask)
+    for name, t, shape in (("dz", dz, (rows, D)), ("w", w, (rows, A)),
+                           ("dw", dw, (rows, A))):
+        if t is None and name == "dw":
+            continue
+        if tuple(t.shape) != shape or t.dtype != q.dtype or t.device != q.device \
+                or not t.is_contiguous():
+            raise ValueError(
+                f"additive_attention_bwd: {name} must be a contiguous {shape} "
+                f"{q.dtype} tensor on {q.device}, got {tuple(t.shape)} {t.dtype} "
+                f"on {t.device}")
+    if q.device.type == "cpu":
+        return additive_attention_bwd_ref(dz, dw, q, keys, v, values, w, mask,
+                                          need_dvalues=need_dvalues)
+    _cuda_device(q, "additive_attention_bwd")
+    if (D + 2 * A + 2 * H) * 4 > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"additive_attention_bwd: D={D}, A={A}, H={H} need more shared "
+            f"memory than the kernel's {MAX_SHARED_BYTES} bytes")
+    fn = _launcher("additive_attention_bwd", "additive_attention_bwd", 15)
+    new = lambda *shape, dtype=q.dtype: torch.empty(  # noqa: E731
+        shape, dtype=dtype, device=q.device)
+    dq, dkeys, dv, dbv = new(rows, H), new(rows, A, H), new(G, H), new(G)
+    dvalues = new(rows, A, D) if need_dvalues else None
+    dv_part = new(rows, H, dtype=torch.float32)
+    dbv_part = new(rows, dtype=torch.float32)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(dz.data_ptr(), _ptr(dw), q.data_ptr(), keys.data_ptr(), v.data_ptr(),
+                 values.data_ptr(), w.data_ptr(), _ptr(mask), dq.data_ptr(),
+                 dkeys.data_ptr(), _ptr(dvalues), dv.data_ptr(), dbv.data_ptr(),
+                 dv_part.data_ptr(), dbv_part.data_ptr(), rows, rows // G, A, H, D,
+                 _DTYPE_CODES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"additive_attention_bwd launch failed: CUDA error {err}")
+    bwd_launches += 1
+    return dq, dkeys, dvalues, dv, dbv
+
+
+class AdditiveAttentionFn(torch.autograd.Function):
+    """Autograd for the read: forward through ``additive_attention_fwd``,
+    backward through ``additive_attention_bwd``. Saves the inputs the
+    gradient needs and w; the tanh activations are recomputed backward."""
+
+    @staticmethod
+    def forward(ctx, q, keys, v, bv, values, mask):
+        z, w = additive_attention_fwd(q, keys, v, bv, values, mask)
+        ctx.save_for_backward(q, keys, v, values, w, mask)
+        ctx.set_materialize_grads(False)  # the cells discard w: its grad is None
+        return z, w
+
+    @staticmethod
+    def backward(ctx, dz, dw):
+        q, keys, v, values, w, mask = ctx.saved_tensors
+        if dz is None:
+            dz = torch.zeros((keys.shape[0], values.shape[2]), dtype=q.dtype,
+                             device=q.device)
+        dq, dkeys, dvalues, dv, dbv = additive_attention_bwd(
+            dz.contiguous(), None if dw is None else dw.contiguous(), q, keys, v,
+            values, w, mask, need_dvalues=ctx.needs_input_grad[4])
+        return dq, dkeys, dv, dbv, dvalues, None
+
+
+def additive_attention(q, keys, v, bv, values, mask=None):
+    """-> (z (rows, D), w (rows, A)), differentiable; see the module
+    docstring."""
+    _check(q, keys, v, bv, values, mask)
+    return AdditiveAttentionFn.apply(q, keys, v, bv, values, mask)

@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
+Each ``csrc/<name>.cu`` (with the shared ``csrc/*.cuh`` headers) exposes a
+plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``build/kernels/lib<name>.so`` under the
 checkout root (a directory ``.gitignore`` lists), then loaded with
 ``ctypes``. Nothing builds at import time: the first launch of a kernel
@@ -38,8 +39,10 @@ def _target(name: str) -> Path:
 
 
 def _fresh(name: str) -> bool:
-    lib, src = _target(name), CSRC / f"{name}.cu"
-    return lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime
+    """The library exists and is newer than its source and the shared headers."""
+    lib = _target(name)
+    srcs = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return lib.exists() and all(lib.stat().st_mtime >= s.stat().st_mtime for s in srcs)
 
 
 def build_all(names=None) -> dict:

@@ -1,7 +1,9 @@
 """Shared model protocol pieces and the model factory.
 
 Counterpart of ``recurrent_fusion_network_tpu/models/base.py`` for the
-pieces eval-mode decoding needs.
+pieces decoding and the XE train step need. ``remat_wrap`` is not ported
+(ROADMAP queue 1, M3 remainder): the port's forward raises for
+``use_remat``.
 """
 
 from __future__ import annotations
@@ -54,6 +56,36 @@ def tile_for_lanes(tree, n_lanes: int):
     """Repeat every leaf along batch axis 0: (B, ...) -> (B*n_lanes, ...),
     image-major (each image's block of lanes is contiguous)."""
     return tree_map(lambda x: torch.repeat_interleave(x, n_lanes, dim=0), tree)
+
+
+def xe_decode(decode_logprobs_fn, embed_fn, state, seq_in, *, ss_prob=0.0,
+              generator=None):
+    """Teacher-forced decode over time with scheduled sampling.
+
+    decode_logprobs_fn: (xt, state) -> (logprobs (B, V+1), state);
+    embed_fn: tokens -> embeddings; seq_in: (B, T) int input tokens (column
+    0 is BOS = 0). Returns (B, T, V+1) log-probabilities.
+
+    At step t >= 1 each row's input token is replaced, with probability
+    ss_prob, by a draw from the previous step's predicted distribution (the
+    coin from ``torch.rand``, the draw by Gumbel-max, both from
+    ``generator``). With ss_prob == 0 nothing is drawn, as the JAX
+    ``lax.cond`` skips the draws; t = 0 always keeps the teacher token.
+    """
+    B, T = seq_in.shape
+    lps = []
+    for t in range(T):
+        tok = seq_in[:, t]
+        if ss_prob > 0.0 and t >= 1:
+            prev = lps[-1].detach()
+            coin = torch.rand((B,), generator=generator, device=prev.device) < ss_prob
+            u = torch.rand(prev.shape, generator=generator, device=prev.device)
+            gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+            sampled = torch.argmax(prev + gumbel, dim=-1)
+            tok = torch.where(coin, sampled.to(tok.dtype), tok)
+        lp, state = decode_logprobs_fn(embed_fn(tok), state)
+        lps.append(lp)
+    return torch.stack(lps, dim=1)
 
 
 def setup(opt):

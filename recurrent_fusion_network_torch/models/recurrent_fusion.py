@@ -1,7 +1,6 @@
 """RecurrentFusionModel: the paper's model (Jiang et al., ECCV 2018).
 
-Counterpart of ``recurrent_fusion_network_tpu/models/recurrent_fusion.py``
-for eval-mode encoding and decoding:
+Counterpart of ``recurrent_fusion_network_tpu/models/recurrent_fusion.py``:
 
   stage I   per-encoder fc -> h init states; ``num_review_steps_0`` untied
             fusion steps, where every encoder's LSTM sees the concatenation H
@@ -15,7 +14,9 @@ for eval-mode encoding and decoding:
 Per-step untied weights are stacked on a leading step axis, as in the JAX
 package, and the JAX scans become Python loops over that axis. Three
 profiles share the code: tied attention keys (the default), untied keys
-(``--reference_parity``) and ``low_rank_ctx``.
+(``--reference_parity``) and ``low_rank_ctx``. ``forward`` is the
+teacher-forced training pass; with ``training=True`` the cells apply
+dropout drawn from the caller's ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import torch
 from ..device import resolve_device
 from ..ops import attention, cells
 from ..ops.initializers import apply_linear, index_params, linear, stack_params
-from .base import EncodeOut, embed_tokens, init_embed_logit, resolve_tied
+from .base import EncodeOut, embed_tokens, init_embed_logit, resolve_tied, xe_decode
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,12 +42,19 @@ class RecurrentFusionModel:
     input_encoding_size: int = 512
     rnn_size: int = 512
     att_hid_size: int = 512
+    drop_prob_lm: float = 0.0
+    drop_prob_reason: float = 0.0
+    drop_prob_fusion: float = 0.0
     num_review_steps: int = 8
     num_review_steps_0: int = 8
     top_words_count: int = 1000
     review_maxout: bool = False
     decoder_maxout: bool = False
     fusion_maxout: bool = False
+    # activation rematerialisation of the JAX package (models/base.py::
+    # remat_wrap); not ported: forward raises when it is set
+    use_remat: bool = False
+    remat_policy: str = "save_ctx"
     tied_att_keys: bool = False
     low_rank_ctx: bool = False
 
@@ -66,12 +74,17 @@ class RecurrentFusionModel:
             input_encoding_size=opt.input_encoding_size,
             rnn_size=opt.rnn_size,
             att_hid_size=opt.att_hid_size,
+            drop_prob_lm=opt.drop_prob_lm,
+            drop_prob_reason=opt.drop_prob_reason,
+            drop_prob_fusion=opt.drop_prob_fusion,
             num_review_steps=opt.num_review_steps,
             num_review_steps_0=opt.num_review_steps_0,
             top_words_count=opt.top_words_count,
             review_maxout=bool(opt.review_maxout),
             decoder_maxout=bool(opt.maxout),
             fusion_maxout=bool(opt.fusion_maxout),
+            use_remat=bool(getattr(opt, "use_remat", 0)),
+            remat_policy=str(getattr(opt, "remat_policy", "save_ctx") or "save_ctx"),
             tied_att_keys=resolve_tied(opt),
             low_rank_ctx=bool(getattr(opt, "low_rank_ctx", 0)),
         )
@@ -144,9 +157,10 @@ class RecurrentFusionModel:
     def embed(self, params, tokens):
         return embed_tokens(params, tokens)
 
-    def encode(self, params, fc_feats, att_feats):
+    def encode(self, params, fc_feats, att_feats, *, generator=None, training=False):
         """fc_feats / att_feats: sequences of M tensors, (B, D_j) and
         (B, A_j, D_j)."""
+        drop = dict(generator=generator, training=training)
         M, R = self.num_feat_array, self.rnn_size
         if len(fc_feats) != M or len(att_feats) != M:
             raise ValueError(f"expected {M} encoders' features")
@@ -180,7 +194,8 @@ class RecurrentFusionModel:
                 out, st = cells.fusion_lstm_step(
                     index_params(params["review1"][j], s), H, values[j], states[j],
                     keys=keys1[j] if self.tied_att_keys else keys1[j][s],
-                    rnn_size=R, maxout=self.fusion_maxout)
+                    rnn_size=R, maxout=self.fusion_maxout,
+                    drop_rate=self.drop_prob_fusion, **drop)
                 outs[j].append(out)
                 reasons[j].append(apply_linear(params["reason_individual"][j], out))
                 new_states.append(st)
@@ -206,7 +221,8 @@ class RecurrentFusionModel:
             out, state = cells.multi_att_lstm_step(
                 index_params(params["review2"], s), thought_stack, state,
                 keys_stack=keys2 if self.tied_att_keys else keys2[s],
-                rnn_size=R, maxout=self.review_maxout)
+                rnn_size=R, maxout=self.review_maxout,
+                drop_rate=self.drop_prob_reason, **drop)
             comb_outs.append(out)
             comb_reasons.append(apply_linear(params["reason_linear"], out))
         thoughts_comb = torch.stack(comb_outs, dim=1)  # (B, S, R)
@@ -218,12 +234,33 @@ class RecurrentFusionModel:
         }
         return EncodeOut(memory=memory, state=state, reason_preds=reason_preds)
 
-    def decode_logits(self, params, xt, memory, state):
+    def decode_logits(self, params, xt, memory, state, *, generator=None,
+                      training=False):
         out, state = cells.att_lstm_step(
             params["decoder"], xt, memory["thoughts"], state, keys=memory["keys"],
-            rnn_size=self.rnn_size, maxout=self.decoder_maxout)
+            rnn_size=self.rnn_size, maxout=self.decoder_maxout,
+            drop_rate=self.drop_prob_lm, generator=generator, training=training)
         return apply_linear(params["logit"], out), state
 
-    def decode_logprobs(self, params, xt, memory, state):
-        logits, state = self.decode_logits(params, xt, memory, state)
+    def decode_logprobs(self, params, xt, memory, state, *, generator=None,
+                        training=False):
+        logits, state = self.decode_logits(params, xt, memory, state,
+                                           generator=generator, training=training)
         return torch.log_softmax(logits.float(), dim=-1), state
+
+    def forward(self, params, fc_feats, att_feats, seq, *, ss_prob=0.0,
+                generator=None, training=False):
+        """Teacher-forced pass over seq[:, :L+1] -> (log-probs (B, L+1, V+1)
+        f32, the M+1 reason heads)."""
+        if self.use_remat:
+            raise NotImplementedError(
+                "use_remat (activation rematerialisation, JAX models/base.py::"
+                "remat_wrap) is not ported yet: ROADMAP.md queue 1, M3 remainder")
+        enc = self.encode(params, fc_feats, att_feats, generator=generator,
+                          training=training)
+        lps = xe_decode(
+            lambda xt, state: self.decode_logprobs(
+                params, xt, enc.memory, state, generator=generator, training=training),
+            lambda toks: self.embed(params, toks), enc.state,
+            seq[:, : self.seq_length + 1], ss_prob=ss_prob, generator=generator)
+        return lps, enc.reason_preds

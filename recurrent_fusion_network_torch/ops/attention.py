@@ -4,9 +4,10 @@ Counterpart of ``recurrent_fusion_network_tpu/ops/attention.py``:
 score = v . tanh(Wa att + Wh h), softmax over spatial positions, context =
 weighted sum of features. The key projection ``Wa att`` and the query
 ``Wh h`` are plain matrix products; the rest of the read (tanh, score,
-softmax, weighted sum) is the hand-written kernel
-``kernels/additive_attention.py``, which on a CUDA tensor launches or
-raises.
+softmax, weighted sum) is the hand-written kernel pair of
+``kernels/additive_attention.py``, differentiable through its
+``AdditiveAttentionFn``: on a CUDA tensor each direction launches its
+kernel or raises.
 """
 
 from __future__ import annotations
@@ -64,7 +65,8 @@ def attend(params, h, att_feats, keys=None, mask=None):
 
 
 def attend_heads(params, h, feats_stack, keys_stack=None, mask=None):
-    """M homogeneous attention heads over M feature sets, one kernel launch.
+    """M homogeneous attention heads over M feature sets, one kernel launch
+    each way (M head groups).
 
     params: attention params stacked on a leading M axis; h: (B, R) shared
     query state; feats_stack: (M, B, A, D); keys_stack: optional

@@ -10,9 +10,10 @@ chunks -- on the last):
   multi_att_lstm  stage-II cell: h2h(h) + sum_i z_2_h[i](z_i) over M heads
 
 Every attention read goes through ``ops/attention.py`` and so through the
-additive-attention kernel. State is a plain ``(h, c)`` tuple of (B, R)
-tensors. These cells serve eval-mode decoding: dropout, inert at serve
-time, arrives with the training slice.
+additive-attention kernels, forward and backward. State is a plain
+``(h, c)`` tuple of (B, R) tensors. In training, dropout is applied to
+next_h before it is returned as both the output and the recurrent state
+(``maybe_dropout``, drawn from an explicit ``torch.Generator``).
 """
 
 from __future__ import annotations
@@ -21,6 +22,16 @@ import torch
 
 from . import attention
 from .initializers import apply_linear, linear, stack_params
+
+
+def maybe_dropout(x, rate: float, generator, training: bool):
+    """Inverted dropout: x / keep where kept, 0 elsewhere. Draws nothing
+    unless training with rate > 0."""
+    if not training or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def lstm_update(all_input_sums, pre_c, rnn_size: int, maxout: bool):
@@ -58,12 +69,14 @@ def att_lstm_init(generator, input_encoding_size, rnn_size, att_feat_size,
 
 
 def att_lstm_step(params, xt, att_feats, state, *, keys=None, mask=None,
-                  rnn_size: int, maxout: bool = False):
+                  rnn_size: int, maxout: bool = False, drop_rate: float = 0.0,
+                  generator=None, training: bool = False):
     pre_h, pre_c = state
     z, _ = attention.attend(params["att"], pre_h, att_feats, keys=keys, mask=mask)
     sums = (apply_linear(params["i2h"], xt) + apply_linear(params["h2h"], pre_h)
             + apply_linear(params["z2h"], z))
     next_h, next_c = lstm_update(sums, pre_c, rnn_size, maxout)
+    next_h = maybe_dropout(next_h, drop_rate, generator, training)
     return next_h, (next_h, next_c)
 
 
@@ -85,13 +98,15 @@ def fusion_lstm_init(generator, H_size, rnn_size, att_feat_size, att_hid_size,
 
 
 def fusion_lstm_step(params, H, att_feats, state, *, keys=None, mask=None,
-                     rnn_size: int, maxout: bool = False):
+                     rnn_size: int, maxout: bool = False, drop_rate: float = 0.0,
+                     generator=None, training: bool = False):
     """One fusion step: the cell sees the concatenated hidden states H of all
     encoders plus attention over its own encoder's features."""
     pre_h, pre_c = state
     z, _ = attention.attend(params["att"], pre_h, att_feats, keys=keys, mask=mask)
     sums = apply_linear(params["H2h"], H) + apply_linear(params["z2h"], z)
     next_h, next_c = lstm_update(sums, pre_c, rnn_size, maxout)
+    next_h = maybe_dropout(next_h, drop_rate, generator, training)
     return next_h, (next_h, next_c)
 
 
@@ -116,7 +131,8 @@ def multi_att_lstm_init(generator, rnn_size, att_feat_size, num_feat_array,
 
 
 def multi_att_lstm_step(params, att_feats_stack, state, *, keys_stack=None,
-                        mask=None, rnn_size: int, maxout: bool = False):
+                        mask=None, rnn_size: int, maxout: bool = False,
+                        drop_rate: float = 0.0, generator=None, training: bool = False):
     """att_feats_stack: (M, B, A, D) homogeneous feature sets; the M reads
     are one kernel launch (M head groups)."""
     pre_h, pre_c = state
@@ -126,4 +142,5 @@ def multi_att_lstm_step(params, att_feats_stack, state, *, keys_stack=None,
     sums = sums + torch.einsum("mbd,mdg->bg", z_stack, params["z_2_h"]["w"])
     sums = sums + params["z_2_h"]["b"].sum(dim=0)
     next_h, next_c = lstm_update(sums, pre_c, rnn_size, maxout)
+    next_h = maybe_dropout(next_h, drop_rate, generator, training)
     return next_h, (next_h, next_c)

@@ -75,6 +75,13 @@ def tree_leaves(tree):
     return [] if tree is None else [tree]
 
 
+def tree_unflatten(tree, leaves):
+    """``tree`` with its leaves replaced by ``leaves``, in ``tree_leaves``
+    order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
 def stack_params(param_list):
     """Stack identically-shaped param trees along a new leading axis (the
     untied review steps, the stage-II heads)."""

@@ -3,12 +3,13 @@
 Counterpart of the load half of
 ``recurrent_fusion_network_tpu/training/checkpoint.py``, which writes per
 tag ``{prefix}model_{id}_{rank}[-best].pkl`` (the params tree as numpy
-arrays) and ``{prefix}infos_{id}_{rank}[-best].pkl`` (opt snapshot, vocab,
-histories). Both are read with an unpickler that admits only numpy,
-ml_dtypes and builtin containers, plus the JAX package's ``EncoderInfo``,
-which it rebuilds as the port's own copy: loading never imports the JAX
-package. The optimizer file holds optax state and is not read here; it
-comes with the training slice.
+arrays), ``{prefix}optimizer_{id}_{rank}[-best].pkl`` (the optax chain's
+state) and ``{prefix}infos_{id}_{rank}[-best].pkl`` (opt snapshot, vocab,
+histories, loader state). All three are read with an unpickler that admits
+only numpy, ml_dtypes and builtin containers, plus the JAX package's
+``EncoderInfo`` and optax's state classes, which it rebuilds as the port's
+own named tuples (``convert.py``): loading never imports the JAX package or
+optax. Writing checkpoints is not ported yet (ROADMAP.md queue 1, M6).
 """
 
 from __future__ import annotations
@@ -17,15 +18,32 @@ import os
 import pickle
 from typing import Any, Tuple
 
+from ..convert import JaxEmptyState, JaxScaleByAdamState, JaxTraceState
 from ..feat_registry import EncoderInfo
+from ..models.base import resolve_tied
 from ..ops.initializers import tree_map
 
 _ALLOWED_MODULES = ("numpy", "ml_dtypes", "collections")
 _REDIRECT = {
     ("recurrent_fusion_network_tpu.feat_registry", "EncoderInfo"): EncoderInfo,
+    ("optax._src.base", "EmptyState"): JaxEmptyState,
+    ("optax._src.transform", "ScaleByAdamState"): JaxScaleByAdamState,
+    ("optax._src.transform", "TraceState"): JaxTraceState,  # older optax
+    ("optax.transforms._accumulation", "TraceState"): JaxTraceState,
 }
 _BUILTINS = {"dict", "list", "tuple", "set", "frozenset", "slice", "complex",
              "bytearray", "range"}
+
+# opt keys that fix the parameter tree: a resume whose options disagree with
+# the checkpoint's saved opt fails on the key (JAX checkpoint.ARCH_KEYS)
+ARCH_KEYS = (
+    "caption_model", "rnn_type", "rnn_size", "num_layers",
+    "input_encoding_size", "att_hid_size", "use_mos",
+    "num_review_steps", "num_review_steps_0", "tied_att_keys",
+    "low_rank_ctx", "maxout", "review_maxout", "fusion_maxout",
+)
+# ARCH_KEYS the port's options do not carry: the one value the port builds
+_ARCH_FIXED = {"rnn_type": "lstm", "num_layers": 1, "use_mos": 0}
 
 
 class _Unpickler(pickle.Unpickler):
@@ -45,16 +63,42 @@ def _load_pickle(path: str):
         return _Unpickler(f).load()
 
 
+def _path(checkpoint_path, kind, run_id, rank, best, prefix) -> str:
+    tag = f"{prefix}{kind}_{run_id}_{rank}" + ("-best" if best else "")
+    return os.path.join(checkpoint_path, tag + ".pkl")
+
+
 def load_checkpoint(checkpoint_path: str, run_id: str, rank: int = 0, *,
                     best: bool = True, prefix: str = "") -> Tuple[Any, dict]:
     """Returns (params tree of numpy arrays, infos or {})."""
-    tag = f"{prefix}{{kind}}_{run_id}_{rank}" + ("-best" if best else "")
-    model = os.path.join(checkpoint_path, tag.format(kind="model") + ".pkl")
+    model = _path(checkpoint_path, "model", run_id, rank, best, prefix)
     if not os.path.exists(model):
         raise FileNotFoundError(model)
-    infos = os.path.join(checkpoint_path, tag.format(kind="infos") + ".pkl")
+    infos = _path(checkpoint_path, "infos", run_id, rank, best, prefix)
     return (_load_pickle(model),
             _load_pickle(infos) if os.path.exists(infos) else {})
+
+
+def load_optimizer(checkpoint_path: str, run_id: str, rank: int = 0, *,
+                   best: bool = True, prefix: str = ""):
+    """The optimizer file's optax chain state (tuple of the port's mirror
+    named tuples, numpy leaves), or None where the tag has no such file;
+    ``convert.opt_state_from_jax`` turns it into the port's state."""
+    path = _path(checkpoint_path, "optimizer", run_id, rank, best, prefix)
+    return _load_pickle(path) if os.path.exists(path) else None
+
+
+def assert_arch_matches(opt, saved_opt: dict) -> None:
+    """Raise where ``opt`` and a checkpoint's saved opt disagree on a key
+    that fixes the parameter tree (keys the saved opt lacks are skipped)."""
+    for key in ARCH_KEYS:
+        ours = getattr(opt, key, _ARCH_FIXED.get(key))
+        if key == "tied_att_keys":
+            ours = int(resolve_tied(opt))  # -1 = auto, as the JAX options resolve it
+        if key in saved_opt and saved_opt[key] != ours:
+            raise ValueError(
+                f"command line and saved model disagree on '{key}' (CLI "
+                f"{ours!r} vs checkpoint {saved_opt[key]!r})")
 
 
 def cast_tree(tree, dtype):
