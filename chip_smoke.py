@@ -9,32 +9,37 @@ Phases, in order; any failure exits non-zero and prints no result line:
               turns TF32 off for matmuls and cuDNN;
   2. build:   compiles every kernel of the port from csrc/ with nvcc for
               sm_90a (one nvcc per source, all started together);
-  3. kernels: each kernel against its plain PyTorch version at the shapes
-              the serving path gives it (flagship widths, B = 512, beam 3),
-              in f32 and bf16, with errors, device times (torch.profiler;
-              CUDA-event times beside them) and the bound (bytes / 3.35 TB/s
-              vs operations / 67 TFLOP/s f32);
+  3. kernels: additive_attention_fwd against its plain PyTorch version at
+              every shape the serving and training paths give it (flagship
+              widths, B = 512: stage I, stage II with G = 5, the decoder at
+              B * beam 3 rows and at B rows), in f32 and bf16, with errors, a
+              bitwise repeat, device times (torch.profiler; CUDA-event times
+              beside them), the bound (bytes / 3.35 TB/s vs operations /
+              67 TFLOP/s f32) and achieved GB/s; sums per beam-3 batch and
+              per train step;
   4. slice:   the flagship RecurrentFusionModel (tied keys, random weights
               from a seeded torch.Generator): f32 beam-3 tokens with the
               kernel equal those with the plain version; then a bf16
               CaptionService (batch 16, beam 3) behind the threaded HTTP
               front end answers concurrent /caption requests with npz bodies,
               with the launch counters reset just before and read just
-              after (64 launches of additive_attention_fwd per batch);
+              after (64 launches of additive_attention_fwd per batch, none on
+              the kernels' scalar path);
   5. throughput: B = 512 beam-3 bf16 decodes through pipelined_map, one of
               them queued under CUDA sync debug mode "error" (no host sync
               inside the decode), then one batch under torch.profiler;
   6. train:   the XE train step. additive_attention_bwd against its plain
               version at every training call site (5 stage-I encoders,
               stage II with G = 5, the decoder; 512 rows; f32 and bf16),
-              with errors, a bitwise repeat, device and event times and the
-              bound; an f32 flagship step at 16 rows, 3 Adam steps with the
+              with errors, a bitwise repeat, device and event times, the
+              bound and achieved GB/s; an f32 flagship step at 16 rows, 3 Adam steps with the
               kernels vs with the plain versions patched in (loss and params
               within tolerance; every grad leaf finite and non-zero but the
               score biases); bf16 flagship steps at 512 rows through
               train() on a fixed batch of seeded random numpy features, with
               the launch counters reset just before and read just after
-              (65 + 65 launches per step), a falling loss, step time,
+              (65 + 65 launches per step, none on the scalar path), a
+              falling loss, step time,
               rows/s, peak memory, and one profiled step.
 The line before the last is the kernels JSON, the last line the device JSON.
 """
@@ -89,12 +94,16 @@ def flagship(torch_rfnet):
 
 
 def attention_sites(model):
-    """(name, G, N, A, D, launches per beam-3 batch) of every call site."""
+    """(name, G, N, A, D, launches per beam-3 batch, launches per train
+    step) of every forward call site. Stage I and II have the same shapes on
+    both paths (BATCH == TRAIN_ROWS); the decoder reads B * beam rows when
+    serving and B rows, one more step, when training."""
     S0, S, L = model.num_review_steps_0, model.num_review_steps, model.seq_length
-    sites = [(f"stage1_enc{j}", 1, BATCH, a, d, S0)
+    sites = [(f"stage1_enc{j}", 1, BATCH, a, d, S0, S0)
              for j, (a, d) in enumerate(zip(model.att_nums, model.att_feat_sizes))]
-    sites.append(("stage2", model.num_feat_array, BATCH, S, model.rnn_size, S))
-    sites.append(("decoder", 1, BATCH * BEAM, S, model.rnn_size, L))
+    sites.append(("stage2", model.num_feat_array, BATCH, S, model.rnn_size, S, S))
+    sites.append(("decoder_beam", 1, BATCH * BEAM, S, model.rnn_size, L, 0))
+    sites.append(("decoder_train", 1, TRAIN_ROWS, S, model.rnn_size, 0, L + 1))
     return sites
 
 
@@ -146,7 +155,7 @@ def check_attention_kernel(torch, aa, sites):
     results = []
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
-        for name, G, N, A, D, per_batch in sites:
+        for name, G, N, A, D, per_batch, per_step in sites:
             def make():
                 def r(*shape, scale=1.0):
                     x = torch.randn(*shape, generator=gen, device=DEVICE) * scale
@@ -156,7 +165,9 @@ def check_attention_kernel(torch, aa, sites):
 
             ins = make()
             z, w = aa.additive_attention(*ins)
+            z2, w2 = aa.additive_attention(*ins)
             torch.cuda.synchronize()
+            repeat = torch.equal(z, z2) and torch.equal(w, w2)
             zr, wr = aa.additive_attention_ref(*ins)
             tol = TOL[dname]
             err = max((z.float() - zr.float()).abs().max().item(),
@@ -179,20 +190,21 @@ def check_attention_kernel(torch, aa, sites):
                         or event_ms(torch, aa.additive_attention_ref, sets, reps=5))
             bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
             row = dict(site=name, dtype=dname, shape=[G, N, A, HID, D],
-                       launches_per_batch=per_batch, max_abs_err=err, max_rel_err=rel,
-                       ok=ok, ms=ms, plain_ms=plain_ms, event_ms=ev_ms,
-                       bound_ms=bound_ms,
+                       launches_per_batch=per_batch, launches_per_step=per_step,
+                       max_abs_err=err, max_rel_err=rel, ok=ok, bitwise_repeat=repeat,
+                       ms=ms, plain_ms=plain_ms, event_ms=ev_ms, bound_ms=bound_ms,
                        bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
-                       else "operations", bytes=nbytes)
+                       else "operations", bytes=nbytes, gb_per_s=nbytes / ms / 1e6)
             log(f"kernel additive_attention_fwd {name} {dname} G={G} N={N} A={A} "
                 f"D={D}: max_abs_err {err:.3e} max_rel_err {rel:.3e} "
-                f"(rtol {tol['rtol']}, atol {tol['atol']}) ok={ok} ms {ms:.4f} "
-                f"plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} "
+                f"(rtol {tol['rtol']}, atol {tol['atol']}) ok={ok} bitwise repeat={repeat} "
+                f"ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} "
+                f"bound/ms {bound_ms / ms:.3f} {row['gb_per_s']:.1f} GB/s "
                 f"(events incl. launch gaps: {ev_ms:.4f} ms)")
-            if not ok:
+            if not (ok and repeat):
                 raise AssertionError(f"additive_attention_fwd disagrees at {name} {dname}")
             results.append(row)
-            del sets, ins, z, w, zr, wr
+            del sets, ins, z, w, z2, w2, zr, wr
     return results
 
 
@@ -270,7 +282,7 @@ def serve_over_http(torch, model, params, counters):
 
         threads = [threading.Thread(target=client, args=(i,)) for i in range(N_REQUESTS)]
         for c in counters:
-            c.launches = c.bwd_launches = 0  # main path starts here
+            c.launches = c.bwd_launches = c.scalar_launches = 0  # main path starts here
         t0 = time.perf_counter()
         for t in threads:
             t.start()
@@ -280,6 +292,8 @@ def serve_over_http(torch, model, params, counters):
         launches = {c.__name__.rsplit(".", 1)[-1]: c.launches for c in counters}
         if any(c.bwd_launches for c in counters):
             raise AssertionError("serving launched the backward kernel")
+        if any(c.scalar_launches for c in counters):
+            raise AssertionError("serving took the kernel's scalar path (unaligned inputs)")
         stats = dict(svc.server.stats)
     finally:
         if httpd is not None:
@@ -452,12 +466,13 @@ def check_attention_backward(torch, aa, sites):
                        ms=ms, plain_ms=plain_ms, event_ms=ev_ms,
                        bound_ms=max(bytes_ms, ops_ms),
                        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                       bytes=nbytes)
+                       bytes=nbytes, gb_per_s=nbytes / ms / 1e6)
             log(f"kernel additive_attention_bwd {name} {dname} G={G} N={N} A={A} D={D} "
                 f"dvalues={need_dvalues}: max_abs_err {err:.3e} max_rel_err {rel:.3e} "
                 f"(rtol {tol['rtol']}, atol {tol['atol']} x max|plain|) ok={ok} "
                 f"bitwise repeat={repeat} ms {ms:.4f} plain_ms {plain_ms:.4f} "
-                f"bound_ms {row['bound_ms']:.4f} (events incl. launch gaps: {ev_ms:.4f} ms)")
+                f"bound_ms {row['bound_ms']:.4f} bound/ms {row['bound_ms'] / ms:.3f} "
+                f"{row['gb_per_s']:.1f} GB/s (events incl. launch gaps: {ev_ms:.4f} ms)")
             if not (ok and repeat):
                 raise AssertionError(f"additive_attention_bwd disagrees at {name} {dname}")
             results.append(row)
@@ -656,18 +671,21 @@ def train_bf16(torch, model, card, counters):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
-        c.launches = c.bwd_launches = 0  # main path starts here
+        c.launches = c.bwd_launches = c.scalar_launches = 0  # main path starts here
     t0 = time.perf_counter()
     infos = train(opt, loader, max_iterations=TRAIN_STEPS, log_fn=log_fn)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"additive_attention_fwd": sum(c.launches for c in counters),
                 "additive_attention_bwd": sum(c.bwd_launches for c in counters)}
+    scalar = sum(c.scalar_launches for c in counters)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [infos["loss_history"][i] for i in range(TRAIN_STEPS)]
     if launches != {k: 65 * TRAIN_STEPS for k in launches}:
         raise AssertionError(f"launches {launches} over {TRAIN_STEPS} steps "
                              f"(expected 65 + 65 per step)")
+    if scalar:
+        raise AssertionError(f"training took the kernels' scalar path {scalar} times")
     falls = sum(b < a for a, b in zip(losses, losses[1:]))
     if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0] \
             or falls < 0.75 * (len(losses) - 1):
@@ -761,6 +779,16 @@ def profile_train_step(torch, model, opt, loader, params, state):
                 copy_ms=copy_ms, profile_top=[(name[:80], us / 1e3) for name, us in top])
 
 
+def path_sums(site_rows, launches_key):
+    """ms, plain_ms and bound_ms summed over the launches of one path (one
+    beam-3 batch or one train step), and bound / ms of the sum."""
+    out = {k: sum(r[k] * r[launches_key] for r in site_rows)
+           for k in ("ms", "plain_ms", "bound_ms")}
+    out["launches"] = sum(r[launches_key] for r in site_rows)
+    out["bound_over_ms"] = out["bound_ms"] / out["ms"]
+    return out
+
+
 def main():
     # ---- 1. device
     import torch
@@ -792,8 +820,9 @@ def main():
 
     model = flagship(RecurrentFusionModel)
     sites = attention_sites(model)
-    if sum(s[-1] for s in sites) != 64:
-        raise AssertionError(f"call sites {sites} do not add up to 64 launches per batch")
+    if sum(s[-2] for s in sites) != 64 or sum(s[-1] for s in sites) != 65:
+        raise AssertionError(f"call sites {sites} do not add up to 64 launches per "
+                             f"batch and 65 per train step")
     rows = check_attention_kernel(torch, aa, sites)
 
     # ---- 4. slice
@@ -819,9 +848,9 @@ def main():
     trained = train_bf16(torch, model, card, [aa])
 
     bf16 = [r for r in rows if r["dtype"] == "bfloat16"]
-    per_batch = lambda key: sum(r[key] * r["launches_per_batch"] for r in bf16)  # noqa: E731
     bwd16 = [r for r in bwd_rows if r["dtype"] == "bfloat16"]
-    per_step = lambda key: sum(r[key] * r["launches_per_step"] for r in bwd16)  # noqa: E731
+    serve, train_fwd = path_sums(bf16, "launches_per_batch"), path_sums(bf16, "launches_per_step")
+    train_bwd = path_sums(bwd16, "launches_per_step")
     kernels = [{
         "name": "additive_attention_fwd",
         "route": "cuda",
@@ -833,12 +862,14 @@ def main():
                              "train": trained["launches"]["additive_attention_fwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         # per beam-3 bf16 batch at B = 512: the sum over its 64 launches
-        "ms": per_batch("ms"),
-        "plain_ms": per_batch("plain_ms"),
-        "bound_ms": per_batch("bound_ms"),
+        "ms": serve["ms"],
+        "plain_ms": serve["plain_ms"],
+        "bound_ms": serve["bound_ms"],
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in bf16) else "operations",
         "library_ms": None,  # no single PyTorch call computes additive attention
-        "ok": all(r["ok"] for r in rows),
+        # the same sums per bf16 train step at B = 512 (65 launches) beside them
+        "by_path": {"serve": serve, "train": train_fwd},
+        "ok": all(r["ok"] and r["bitwise_repeat"] for r in rows),
         "sites": rows,
     }, {
         "name": "additive_attention_bwd",
@@ -852,15 +883,21 @@ def main():
         # errors relative to the largest plain value of each output
         "max_rel_err": max(r["max_rel_err"] for r in bwd_rows),
         # per bf16 train step at B = 512: the sum over its 65 launches
-        "ms": per_step("ms"),
-        "plain_ms": per_step("plain_ms"),
-        "bound_ms": per_step("bound_ms"),
+        "ms": train_bwd["ms"],
+        "plain_ms": train_bwd["plain_ms"],
+        "bound_ms": train_bwd["bound_ms"],
+        "by_path": {"train": train_bwd},
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in bwd16) else "operations",
         "library_ms": None,  # no single PyTorch call computes its gradient
         "ok": all(r["ok"] and r["bitwise_repeat"] for r in bwd_rows),
         "sites": bwd_rows,
     }]
     log("train summary: " + json.dumps({**f32_check, **trained}))
+    for k in kernels:
+        for path, sums in k["by_path"].items():
+            log(f"kernel {k['name']} per bf16 {path} path ({sums['launches']} launches): "
+                f"ms {sums['ms']:.4f} plain_ms {sums['plain_ms']:.4f} bound_ms "
+                f"{sums['bound_ms']:.4f} bound/ms {sums['bound_over_ms']:.3f}")
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -32,15 +32,73 @@ import ctypes
 import torch
 
 NEG_INF = -1e9
-MAX_SHARED_BYTES = 48 * 1024  # static launch limit (no opt-in attribute set)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The kernels' launch layout (csrc/common.cuh): 256 consumer threads and one
+# producer warp per block; R rows per block, each a team of 256 / R threads
+# with its own ring of stages; dynamic shared memory up to what an sm_90
+# block may opt in to.
+CONSUMER_THREADS = 256
+MAX_SHARED_BYTES = 227 * 1024
+_RING_HEADER = 512  # the ring's mbarriers (common.cuh kRingHeader)
+_FWD_ACC, _BWD_ACC = 16, 8  # f32 sums per thread: of z (fwd), of dq and dv (bwd)
 
 # Kernel launches since the last reset (chip_smoke.py resets and reads them
 # to show that the main path went through the kernels). CPU calls do not
 # count. ``launches`` counts additive_attention_fwd, ``bwd_launches``
-# additive_attention_bwd.
+# additive_attention_bwd; ``scalar_launches`` counts the launches of either
+# that took the kernels' scalar path (odd widths, unaligned keys or values).
 launches = 0
 bwd_launches = 0
+scalar_launches = 0
+
+
+def _pad(x, n):
+    return -(-x // n) * n
+
+
+def _plan(A, H, D, dtype, backward):
+    """The launch layout the kernels take for these widths: -> (rows per
+    block R, stages per row, stage bytes, dynamic shared bytes). R = 4 rows
+    per block when A <= 8 (fewer if a row's threads cannot hold its sums);
+    two stages per row of about 16 KB (R = 1) or 4 KB, holding whole key or
+    value rows. Raises ValueError for widths no layout takes: the forward
+    keeps up to 16 f32 sums of z per thread (D <= 4096), the backward up to
+    8 of dq and of dv (H <= 2048), and a block holds at most
+    MAX_SHARED_BYTES. The same on every device, so the plain version takes
+    what the kernel takes."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    vec = 16 // esize
+    row = max(H, D) * esize
+    groups, acc = (-(-H // vec), _BWD_ACC) if backward else (-(-D // vec), _FWD_ACC)
+    team_floats = (_pad(D, 8) + 2 * _pad(H, 8) + 2 * _pad(A, 4) + 8 if backward
+                   else 2 * _pad(H, 8) + _pad(A, 4) + 8)
+    stages = 2
+    for R in ((4, 2, 1) if A <= 8 else (1,)):
+        threads = CONSUMER_THREADS // R
+        if -(-groups // threads) > acc // vec:
+            continue
+        per_stage = max(1, ((16384 if R == 1 else 4096) + row // 2) // row)
+        stage = -(-per_stage * row // 16) * 16
+        if backward:  # the keys pass's last reduction reuses a row's stages
+            stage = max(stage, -(-2 * threads * vec * 4 // (16 * stages)) * 16)
+        smem = _RING_HEADER + R * (stages * stage + 4 * team_floats)
+        if smem <= MAX_SHARED_BYTES:
+            return R, stages, stage, smem
+    what = "D <= 4096" if not backward else "H <= 2048"
+    raise ValueError(
+        f"additive_attention{'_bwd' if backward else ''}: no kernel layout for A={A}, "
+        f"H={H}, D={D} in {dtype}: the kernel takes {what} and at most "
+        f"{MAX_SHARED_BYTES} bytes of shared memory per block")
+
+
+def _vec(H, D, keys, values):
+    """1 when the kernels can stream keys and values with 16-byte bulk copies
+    (widths a multiple of 16 bytes, both tensors 16-byte aligned), else 0:
+    the kernels' scalar path."""
+    n = 16 // keys.element_size()
+    return int(H % n == 0 and D % n == 0 and keys.data_ptr() % 16 == 0
+               and values.data_ptr() % 16 == 0)
 
 
 def additive_attention_ref(q, keys, v, bv, values, mask=None):
@@ -133,7 +191,7 @@ def _launcher(source: str, symbol: str, n_ptrs: int):
     from .build import load
 
     fn = getattr(load(source), symbol)
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -150,26 +208,25 @@ def _cuda_device(t, what: str):
 def additive_attention_fwd(q, keys, v, bv, values, mask=None):
     """-> (z (rows, D), w (rows, A)), no autograd: the forward kernel on a
     CUDA tensor, ``additive_attention_ref`` on a CPU tensor."""
-    global launches
+    global launches, scalar_launches
     rows, A, H, D, G = _check(q, keys, v, bv, values, mask)
+    plan = _plan(A, H, D, q.dtype, backward=False)
     if q.device.type == "cpu":
         return additive_attention_ref(q, keys, v, bv, values, mask)
     _cuda_device(q, "additive_attention_fwd")
-    if (2 * H + A) * 4 > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"additive_attention: H={H}, A={A} need more shared memory than "
-            f"the kernel's {MAX_SHARED_BYTES} bytes")
     fn = _launcher("additive_attention", "additive_attention_fwd", 8)
     z = torch.empty((rows, D), dtype=q.dtype, device=q.device)
     w = torch.empty((rows, A), dtype=q.dtype, device=q.device)
+    vec = _vec(H, D, keys, values)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), keys.data_ptr(), v.data_ptr(), bv.data_ptr(),
                  values.data_ptr(), _ptr(mask), z.data_ptr(), w.data_ptr(),
-                 rows, rows // G, A, H, D, _DTYPE_CODES[q.dtype], stream)
+                 rows, rows // G, A, H, D, _DTYPE_CODES[q.dtype], vec, *plan, stream)
     if err != 0:
         raise RuntimeError(f"additive_attention_fwd launch failed: CUDA error {err}")
     launches += 1
+    scalar_launches += 1 - vec
     return z, w
 
 
@@ -178,7 +235,7 @@ def additive_attention_bwd(dz, dw, q, keys, v, values, w, mask=None, *,
     """-> (dq, dkeys, dvalues or None, dv, dbv): the backward kernel on a
     CUDA tensor, ``additive_attention_bwd_ref`` on a CPU tensor. dz (rows,
     D) and w (rows, A) as the forward gave them; dw may be None."""
-    global bwd_launches
+    global bwd_launches, scalar_launches
     rows, A, H, D, G = _check(q, keys, v, None, values, mask)
     for name, t, shape in (("dz", dz, (rows, D)), ("w", w, (rows, A)),
                            ("dw", dw, (rows, A))):
@@ -190,14 +247,11 @@ def additive_attention_bwd(dz, dw, q, keys, v, values, w, mask=None, *,
                 f"additive_attention_bwd: {name} must be a contiguous {shape} "
                 f"{q.dtype} tensor on {q.device}, got {tuple(t.shape)} {t.dtype} "
                 f"on {t.device}")
+    plan = _plan(A, H, D, q.dtype, backward=True)
     if q.device.type == "cpu":
         return additive_attention_bwd_ref(dz, dw, q, keys, v, values, w, mask,
                                           need_dvalues=need_dvalues)
     _cuda_device(q, "additive_attention_bwd")
-    if (D + 2 * A + 2 * H) * 4 > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"additive_attention_bwd: D={D}, A={A}, H={H} need more shared "
-            f"memory than the kernel's {MAX_SHARED_BYTES} bytes")
     fn = _launcher("additive_attention_bwd", "additive_attention_bwd", 15)
     new = lambda *shape, dtype=q.dtype: torch.empty(  # noqa: E731
         shape, dtype=dtype, device=q.device)
@@ -205,16 +259,18 @@ def additive_attention_bwd(dz, dw, q, keys, v, values, w, mask=None, *,
     dvalues = new(rows, A, D) if need_dvalues else None
     dv_part = new(rows, H, dtype=torch.float32)
     dbv_part = new(rows, dtype=torch.float32)
+    vec = _vec(H, D, keys, values)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(dz.data_ptr(), _ptr(dw), q.data_ptr(), keys.data_ptr(), v.data_ptr(),
                  values.data_ptr(), w.data_ptr(), _ptr(mask), dq.data_ptr(),
                  dkeys.data_ptr(), _ptr(dvalues), dv.data_ptr(), dbv.data_ptr(),
                  dv_part.data_ptr(), dbv_part.data_ptr(), rows, rows // G, A, H, D,
-                 _DTYPE_CODES[q.dtype], stream)
+                 _DTYPE_CODES[q.dtype], vec, *plan, stream)
     if err != 0:
         raise RuntimeError(f"additive_attention_bwd launch failed: CUDA error {err}")
     bwd_launches += 1
+    scalar_launches += 1 - vec
     return dq, dkeys, dvalues, dv, dbv
 
 

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from recurrent_fusion_network_torch.kernels import additive_attention as aa
+from recurrent_fusion_network_torch.kernels import probe
 
 torch.set_num_threads(1)
 RTOL, ATOL = 1e-4, 1e-5
@@ -50,15 +51,54 @@ def cuda():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
 
 
-def _kernel_inputs(G=1, N=4, A=6, D=20, dtype=torch.float32, device="cpu"):
+def _kernel_inputs(G=1, N=4, A=6, D=20, dtype=torch.float32, device="cpu", h=H):
     g = torch.Generator(device=device).manual_seed(0)
     r = lambda *s: torch.randn(*s, generator=g, device=device).to(dtype)  # noqa: E731
-    return [r(G * N, H), r(G * N, A, H), r(G, H), r(G), r(G * N, A, D)]
+    return [r(G * N, h), r(G * N, A, h), r(G, h), r(G), r(G * N, A, D)]
+
+
+def _misaligned(t):
+    """t's values in a contiguous view that starts one element into a flat
+    buffer: not 16-byte aligned, yet contiguous, so the wrapper takes it."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def test_kernel_plan_takes_several_rows_per_block_at_the_small_sites():
+    """Stage II and the decoder (A = 8) get 4 rows per block, stage I one;
+    every stage holds whole key and value rows in a multiple of 16 bytes,
+    within the shared memory a block may opt in to."""
+    for dtype in (torch.float32, torch.bfloat16):
+        esize = torch.empty((), dtype=dtype).element_size()
+        for A, D in ((196, 2048), (64, 1536), (49, 2208), (8, 512), (7, 21), (1, 64)):
+            for backward in (False, True):
+                R, stages, stage, smem = aa._plan(A, 512, D, dtype, backward)
+                assert R == (4 if A <= 8 else 1)
+                assert stage % 16 == 0 and stage >= max(512, D) * esize
+                assert 2 <= stages <= 4 and smem <= aa.MAX_SHARED_BYTES
+    # wide rows need every thread of the block: fewer rows per block
+    assert aa._plan(8, 512, 4096, torch.float32, False)[0] == 1
+    assert aa._plan(8, 2048, 64, torch.float32, True)[0] == 1
+
+
+@pytest.mark.parametrize("case, vec", [("aligned", 1), ("odd_h", 0), ("odd_d", 0),
+                                       ("misaligned_keys", 0), ("misaligned_values", 0)])
+def test_kernel_takes_its_scalar_path_for_odd_widths_and_unaligned_inputs(case, vec):
+    h, D = {"odd_h": (36, 64), "odd_d": (64, 36)}.get(case, (64, 64))
+    _, keys, _, _, values = _kernel_inputs(A=3, D=D, dtype=torch.bfloat16, h=h)
+    if case == "misaligned_keys":
+        keys = _misaligned(keys)
+    elif case == "misaligned_values":
+        values = _misaligned(values)
+    assert keys.is_contiguous() and values.is_contiguous()
+    assert aa._vec(h, D, keys, values) == vec
 
 
 @pytest.mark.parametrize("case", [
     "rank", "shape", "groups", "dtype", "mixed_dtype", "noncontiguous", "mask",
-    "device", "empty",
+    "device", "empty", "shared_memory", "width",
 ])
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(case):
     q, keys, v, bv, values = _kernel_inputs(G=2)
@@ -84,20 +124,44 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(case):
         q, keys, v, bv, values = (x.to("meta") for x in (q, keys, v, bv, values))
     elif case == "empty":
         q, keys, values = q[:0], keys[:0], values[:0]
+    elif case == "shared_memory":  # q and v in f32 alone exceed a block's shared memory
+        q, keys, v, bv, values = _kernel_inputs(N=1, A=1, D=4, h=30000)
+    elif case == "width":  # more sums of z than a block's threads hold
+        q, keys, v, bv, values = _kernel_inputs(N=1, A=1, D=4100)
     before = aa.launches
     with pytest.raises(err):
         aa.additive_attention(q, keys, v, bv, values, mask)
     assert aa.launches == before
 
 
+# (G, N, A, H, D, keys and values misaligned): every branch of the kernel
+FWD_SHAPES = {
+    "stage2": (5, 64, 8, 32, 512, False),
+    "group_boundary_in_a_block": (5, 63, 8, 512, 512, False),  # 315 rows, 4 per block
+    "odd_widths": (1, 10, 7, 37, 21, False),                    # scalar path
+    "one_position": (3, 5, 1, 64, 64, False),
+    "stage1": (1, 6, 196, 512, 2048, False),
+    "misaligned": (1, 5, 49, 512, 2208, True),                  # scalar path
+}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(FWD_SHAPES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_matches_plain_version_on_the_card(cuda, dtype):
-    ins = _kernel_inputs(G=5, N=64, A=8, D=512, dtype=dtype, device="cuda")
-    before = aa.launches
+def test_kernel_matches_plain_version_on_the_card(cuda, dtype, shape):
+    """The forward kernel vs its plain version, and twice on the same inputs
+    bit for bit."""
+    G, N, A, h, D, misaligned = FWD_SHAPES[shape]
+    ins = _kernel_inputs(G=G, N=N, A=A, D=D, dtype=dtype, device="cuda", h=h)
+    if misaligned:
+        ins[1], ins[4] = _misaligned(ins[1]), _misaligned(ins[4])
+    before, scalar = aa.launches, aa.scalar_launches
     z, w = aa.additive_attention(*ins)
+    z2, w2 = aa.additive_attention(*ins)
     torch.cuda.synchronize()
-    assert aa.launches == before + 1
+    assert aa.launches == before + 2
+    assert aa.scalar_launches - scalar == (2 if shape in ("odd_widths", "misaligned") else 0)
+    assert torch.equal(z, z2) and torch.equal(w, w2)
     zr, wr = aa.additive_attention_ref(*ins)
     tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else dict(rtol=1e-2, atol=1.6e-2)
     torch.testing.assert_close(z.float(), zr.float(), **tol)
@@ -109,11 +173,13 @@ def test_masked_read_matches_plain_version_on_the_card(cuda):
     ins = _kernel_inputs(G=1, N=32, A=10, D=64, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(1)
     mask = torch.rand((32, 10), generator=g, device="cuda") > 0.4
+    mask[0] = False  # a fully masked row: uniform weights, as softmax gives
     z, w = aa.additive_attention(*ins, mask)
     zr, wr = aa.additive_attention_ref(*ins, mask)
     torch.testing.assert_close(z, zr, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(w, wr, rtol=1e-4, atol=1e-4)
-    assert (w[~mask] < 1e-6).all()
+    assert (w[1:][~mask[1:]] < 1e-6).all()
+    torch.testing.assert_close(w[0], torch.full_like(w[0], 0.1))
 
 
 @pytest.mark.cuda
@@ -151,8 +217,9 @@ def test_model_decode_goes_through_the_kernel_on_the_card(cuda):
     torch.testing.assert_close(out.top_p, plain.top_p, rtol=1e-4, atol=1e-4)
 
 
-def _bwd_inputs(G=1, N=4, A=6, D=20, dtype=torch.float32, device="cpu", masked=False):
-    q, keys, v, bv, values = _kernel_inputs(G, N, A, D, dtype, device)
+def _bwd_inputs(G=1, N=4, A=6, D=20, dtype=torch.float32, device="cpu", masked=False,
+                h=H):
+    q, keys, v, bv, values = _kernel_inputs(G, N, A, D, dtype, device, h)
     g = torch.Generator(device=device).manual_seed(3)
     mask = None
     if masked:
@@ -163,7 +230,8 @@ def _bwd_inputs(G=1, N=4, A=6, D=20, dtype=torch.float32, device="cpu", masked=F
     return dz, None, q, keys, v, values, w, mask
 
 
-@pytest.mark.parametrize("case", ["dz_shape", "dw_dtype", "w_noncontiguous", "device"])
+@pytest.mark.parametrize("case", ["dz_shape", "dw_dtype", "w_noncontiguous", "device",
+                                  "shared_memory", "width"])
 def test_backward_wrapper_rejects_what_the_kernel_does_not_take(case):
     dz, dw, q, keys, v, values, w, mask = _bwd_inputs(G=2)
     if case == "dz_shape":
@@ -174,6 +242,10 @@ def test_backward_wrapper_rejects_what_the_kernel_does_not_take(case):
         w = w.t().contiguous().t()
     elif case == "device":
         dz, q, keys, v, values, w = (x.to("meta") for x in (dz, q, keys, v, values, w))
+    elif case == "shared_memory":  # one f32 row of dz and one value row exceed it
+        dz, dw, q, keys, v, values, w, mask = _bwd_inputs(N=1, A=1, D=60000)
+    elif case == "width":  # more sums of dq and dv than a block's threads hold
+        dz, dw, q, keys, v, values, w, mask = _bwd_inputs(N=1, A=1, h=2052)
     before = aa.bwd_launches
     with pytest.raises(ValueError):
         aa.additive_attention_bwd(dz, dw, q, keys, v, values, w, mask)
@@ -182,22 +254,33 @@ def test_backward_wrapper_rejects_what_the_kernel_does_not_take(case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("groups, masked, need_dvalues",
-                         [(5, False, True), (1, True, True), (1, False, False)])
-def test_backward_kernel_matches_plain_version_on_the_card(cuda, dtype, groups, masked,
-                                                           need_dvalues):
+@pytest.mark.parametrize("groups, N, A, h, D, masked, need_dvalues, misaligned", [
+    (5, 64, 8, 32, 512, False, True, False),
+    (1, 64, 8, 32, 512, True, True, False),
+    (1, 64, 8, 32, 512, False, False, False),
+    (5, 63, 8, 512, 512, False, True, False),   # a group boundary inside a block
+    (1, 10, 7, 37, 21, True, True, False),      # scalar path, a fully masked row
+    (3, 5, 1, 64, 64, False, True, False),
+    (1, 6, 196, 512, 2048, False, False, False),
+    (1, 5, 49, 512, 2208, False, True, True),   # scalar path: unaligned keys, values
+])
+def test_backward_kernel_matches_plain_version_on_the_card(cuda, dtype, groups, N, A, h, D,
+                                                           masked, need_dvalues, misaligned):
     """The backward kernel vs its plain version, and twice on the same
     inputs bit for bit (no float atomics)."""
-    dz, _, q, keys, v, values, w, mask = _bwd_inputs(groups, 64, 8, 512, dtype, "cuda",
-                                                     masked)
+    dz, _, q, keys, v, values, w, mask = _bwd_inputs(groups, N, A, D, dtype, "cuda",
+                                                     masked, h)
+    if misaligned:
+        keys, values = _misaligned(keys), _misaligned(values)
     dw = torch.randn(w.shape, device="cuda").to(dtype) if groups == 5 else None
-    before = aa.bwd_launches
+    before, scalar = aa.bwd_launches, aa.scalar_launches
     got = aa.additive_attention_bwd(dz, dw, q, keys, v, values, w, mask,
                                     need_dvalues=need_dvalues)
     again = aa.additive_attention_bwd(dz, dw, q, keys, v, values, w, mask,
                                       need_dvalues=need_dvalues)
     torch.cuda.synchronize()
     assert aa.bwd_launches == before + 2
+    assert aa.scalar_launches - scalar == (2 if misaligned or h == 37 else 0)
     ref = aa.additive_attention_bwd_ref(dz, dw, q, keys, v, values, w, mask,
                                         need_dvalues=need_dvalues)
     assert (got[2] is None) == (not need_dvalues)
@@ -281,3 +364,17 @@ def _paths(tree, path=""):
     if isinstance(tree, (list, tuple)):
         return [q for i, v in enumerate(tree) for q in _paths(v, f"{path}[{i}]")]
     return [path]
+
+
+@pytest.mark.parametrize("variant", sorted(probe.VARIANTS))
+def test_probe_variants_apply_to_the_kernel_sources(variant, tmp_path):
+    """Each variant of kernels/probe.py is a text edit that matches the
+    sources exactly once, so the probe keeps measuring what it names."""
+    _, edits, over = probe.VARIANTS[variant]
+    root = probe.make_variant(variant, edits, dest=tmp_path)
+    for fname, old, new in edits:
+        text = (root / "csrc" / fname).read_text()
+        assert old not in text or old in new
+        assert new in text
+    assert set(over) <= {"R", "stages", "stage_target", "vec"}
+
