@@ -8,7 +8,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
   1. device:  requires CUDA, prints the card's name and power limit, and
               turns TF32 off for matmuls and cuDNN;
   2. build:   compiles every kernel of the port from csrc/ with nvcc for
-              sm_90a (one nvcc per source, all started together);
+              sm_90a (one nvcc per source, all started together) and, beside
+              them, the native CIDEr-D scorer (csrc/cider_d.cpp) with g++;
   3. kernels: additive_attention_fwd against its plain PyTorch version at
               every shape the serving and training paths give it (flagship
               widths, B = 512: stage I, stage II with G = 5, the decoder at
@@ -40,7 +41,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
               the launch counters reset just before and read just after
               (65 + 65 launches per step, none on the scalar path), a
               falling loss, step time,
-              rows/s, peak memory, and one profiled step.
+              rows/s, peak memory, and one profiled step;
+  7. SCST:    the self-critical step in f32 at bench.py::bench_rl's batch
+              (B = 256, one image per row with 5 random references, a
+              CIDEr-D scorer with 1,000,000 df entries on its native
+              engine). Both kernels against their plain versions at its
+              sites (stage I and II at B rows, the rollout's decoder at 2B
+              lanes, the step's decoder at B rows); an f32 iteration at 16
+              rows with the kernels vs with the plain versions patched in
+              (rollout tokens, then the step's loss and grads); 10
+              iterations through train_rl() with --rl_overlap 1 and again
+              with 0, the launch counters reset just before and read just
+              after each (130 + 65 launches per iteration, none on the
+              scalar path), iteration time and images/s; serial iterations
+              split into batch copy, rollout, host reward and grad step;
+              one profiled iteration; peak memory.
 The line before the last is the kernels JSON, the last line the device JSON.
 """
 
@@ -69,6 +84,8 @@ TOL = {"float32": dict(rtol=1e-4, atol=1e-4),  # sum order, tanhf ulps
 # in another order; bf16 outputs rounded once on each side, ~2.5 ulps
 BWD_TOL = {"float32": dict(rtol=1e-4, atol=1e-4), "bfloat16": dict(rtol=1e-2, atol=1e-2)}
 TRAIN_ROWS, SMALL_ROWS, TRAIN_STEPS, LR = 512, 16, 20, 5e-4
+RL_ROWS, RL_ITERS, RL_LR = 256, 10, 5e-5  # bench.py::bench_rl's batch, optim_rl_lr
+COCO_TRAIN_IMAGES = 113_287
 
 
 def log(msg):
@@ -94,17 +111,23 @@ def flagship(torch_rfnet):
 
 
 def attention_sites(model):
-    """(name, G, N, A, D, launches per beam-3 batch, launches per train
-    step) of every forward call site. Stage I and II have the same shapes on
-    both paths (BATCH == TRAIN_ROWS); the decoder reads B * beam rows when
-    serving and B rows, one more step, when training."""
+    """(name, G, N, A, D, {path: launches}) of every forward call site of
+    the serving path ("serve": per beam-3 batch) and the XE step ("train":
+    per step). Stage I and II have the same shapes on both paths (BATCH ==
+    TRAIN_ROWS); the decoder reads B * beam rows when serving and B rows,
+    one more step, when training."""
     S0, S, L = model.num_review_steps_0, model.num_review_steps, model.seq_length
-    sites = [(f"stage1_enc{j}", 1, BATCH, a, d, S0, S0)
+    sites = [(f"stage1_enc{j}", 1, BATCH, a, d, {"serve": S0, "train": S0})
              for j, (a, d) in enumerate(zip(model.att_nums, model.att_feat_sizes))]
-    sites.append(("stage2", model.num_feat_array, BATCH, S, model.rnn_size, S, S))
-    sites.append(("decoder_beam", 1, BATCH * BEAM, S, model.rnn_size, L, 0))
-    sites.append(("decoder_train", 1, TRAIN_ROWS, S, model.rnn_size, 0, L + 1))
+    sites.append(("stage2", model.num_feat_array, BATCH, S, model.rnn_size,
+                  {"serve": S, "train": S}))
+    sites.append(("decoder_beam", 1, BATCH * BEAM, S, model.rnn_size, {"serve": L}))
+    sites.append(("decoder_train", 1, TRAIN_ROWS, S, model.rnn_size, {"train": L + 1}))
     return sites
+
+
+def per_path(sites, path):
+    return sum(s[-1].get(path, 0) for s in sites)
 
 
 def event_ms(torch, fn, input_sets, reps=20, repeats=5):
@@ -150,12 +173,12 @@ def device_ms(torch, fn, input_sets, reps=20, attempts=3):
     return None
 
 
-def check_attention_kernel(torch, aa, sites):
+def check_attention_kernel(torch, aa, sites, dtypes):
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     results = []
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
         dname = str(dtype).replace("torch.", "")
-        for name, G, N, A, D, per_batch, per_step in sites:
+        for name, G, N, A, D, launches in sites:
             def make():
                 def r(*shape, scale=1.0):
                     x = torch.randn(*shape, generator=gen, device=DEVICE) * scale
@@ -190,8 +213,8 @@ def check_attention_kernel(torch, aa, sites):
                         or event_ms(torch, aa.additive_attention_ref, sets, reps=5))
             bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
             row = dict(site=name, dtype=dname, shape=[G, N, A, HID, D],
-                       launches_per_batch=per_batch, launches_per_step=per_step,
-                       max_abs_err=err, max_rel_err=rel, ok=ok, bitwise_repeat=repeat,
+                       launches=launches, max_abs_err=err, max_rel_err=rel, ok=ok,
+                       bitwise_repeat=repeat,
                        ms=ms, plain_ms=plain_ms, event_ms=ev_ms, bound_ms=bound_ms,
                        bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
                        else "operations", bytes=nbytes, gb_per_s=nbytes / ms / 1e6)
@@ -323,7 +346,6 @@ def serve_over_http(torch, model, params, counters):
 def throughput(torch, model, params, card):
     """Timed B = 512 beam-3 bf16 decodes through pipelined_map, then one
     profiled decode: device busy time by kernel and the device's idle share."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from recurrent_fusion_network_torch.decoding.api import model_sample
@@ -363,11 +385,28 @@ def throughput(torch, model, params, card):
         t1 = time.perf_counter()
         decode(batches[1]).cpu()
         wall_ms = (time.perf_counter() - t1) * 1e3
+    summary = device_profile(prof)
+    if summary is None:
+        log("profile: the profiler recorded no device events; device time not measured")
+        return rate
+    busy, n_events, by_name = summary
+    log(f"profile: one B={BATCH} beam-3 bf16 decode: wall {wall_ms:.2f} ms, device busy "
+        f"{busy:.2f} ms, idle share {1 - busy / wall_ms:.3f}, {n_events} device events")
+    for name, ms in by_name[:8]:
+        log(f"profile:   {ms:8.3f} ms  {name[:110]}")
+    return rate
+
+
+def device_profile(prof):
+    """-> (device busy ms, device events, [(name, ms)] by total time) of a
+    torch.profiler run, or None when it recorded no device activity. Busy
+    time is the union of the device activities' intervals."""
+    from torch.autograd import DeviceType
+
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                    if e.device_type == DeviceType.CUDA)
     if not spans:
-        log("profile: the profiler recorded no device events; device time not measured")
-        return rate
+        return None
     busy, cur_s, cur_e, by_name = 0.0, None, None, {}
     for s0, e0, name in spans:
         by_name[name] = by_name.get(name, 0.0) + (e0 - s0)
@@ -377,22 +416,20 @@ def throughput(torch, model, params, card):
         else:
             cur_e = max(cur_e, e0)
     busy = (busy + cur_e - cur_s) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    log(f"profile: one B={BATCH} beam-3 bf16 decode: wall {wall_ms:.2f} ms, device busy "
-        f"{busy:.2f} ms, idle share {1 - busy / wall_ms:.3f}, {len(spans)} device events")
-    for name, us in top:
-        log(f"profile:   {us / 1e3:8.3f} ms  {name[:110]}")
-    return rate
+    top = sorted(((name, us / 1e3) for name, us in by_name.items()), key=lambda kv: -kv[1])
+    return busy, len(spans), top
 
 
-def train_sites(model, rows):
-    """(name, G, N, A, D, values need a grad, launches per train step) of
-    every attention call site of the tied-keys XE step."""
+def train_sites(model, rows, path="train", prefix=""):
+    """(name, G, N, A, D, values need a grad, {path: launches per step}) of
+    every attention call site of the tied-keys XE step at ``rows``; the
+    SCST step (path "scst") has the same sites."""
     S0, S, T = model.num_review_steps_0, model.num_review_steps, model.seq_length + 1
-    sites = [(f"stage1_enc{j}", 1, rows, a, d, False, S0)
+    sites = [(f"{prefix}stage1_enc{j}", 1, rows, a, d, False, {path: S0})
              for j, (a, d) in enumerate(zip(model.att_nums, model.att_feat_sizes))]
-    sites.append(("stage2", model.num_feat_array, rows, S, model.rnn_size, True, S))
-    sites.append(("decoder", 1, rows, S, model.rnn_size, True, T))
+    sites.append((f"{prefix}stage2", model.num_feat_array, rows, S, model.rnn_size, True,
+                  {path: S}))
+    sites.append((f"{prefix}decoder", 1, rows, S, model.rnn_size, True, {path: T}))
     return sites
 
 
@@ -414,16 +451,16 @@ def _bwd_err(got, ref, tol):
     return abs_err, rel_err, ok
 
 
-def check_attention_backward(torch, aa, sites):
-    """additive_attention_bwd vs additive_attention_bwd_ref at every training
-    site, f32 and bf16: errors, a bitwise repeat, device / event / plain ms
-    and the bound. dz is random, w the forward's, the incoming grad of w None
-    (the cells discard w)."""
+def check_attention_backward(torch, aa, sites, dtypes):
+    """additive_attention_bwd vs additive_attention_bwd_ref at every given
+    training site and dtype: errors, a bitwise repeat, device / event /
+    plain ms and the bound. dz is random, w the forward's, the incoming
+    grad of w None (the cells discard w)."""
     gen = torch.Generator(device=DEVICE).manual_seed(5)
     results = []
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
         dname = str(dtype).replace("torch.", "")
-        for name, G, N, A, D, need_dvalues, per_step in sites:
+        for name, G, N, A, D, need_dvalues, launches in sites:
             def make():
                 def r(*shape, scale=1.0):
                     x = torch.randn(*shape, generator=gen, device=DEVICE) * scale
@@ -461,7 +498,7 @@ def check_attention_backward(torch, aa, sites):
                         or event_ms(torch, plain, sets, reps=5))
             bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
             row = dict(site=name, dtype=dname, shape=[G, N, A, HID, D],
-                       dvalues=need_dvalues, launches_per_step=per_step,
+                       dvalues=need_dvalues, launches=launches,
                        max_abs_err=err, max_rel_err=rel, ok=ok, bitwise_repeat=repeat,
                        ms=ms, plain_ms=plain_ms, event_ms=ev_ms,
                        bound_ms=max(bytes_ms, ops_ms),
@@ -481,8 +518,10 @@ def check_attention_backward(torch, aa, sites):
 
 
 class FixedBatchLoader:
-    """A loader for train(): the same batch of seeded random numpy arrays at
-    flagship widths on every call, in the JAX loader's batch-dict layout."""
+    """A loader for train() and train_rl(): the same batch of seeded random
+    numpy arrays at flagship widths on every call, in the JAX loader's
+    batch-dict layout; one image per row, each with 5 random reference
+    captions of seq_length tokens (``gts``)."""
 
     def __init__(self, model, rows, seed):
         import numpy as np
@@ -510,6 +549,7 @@ class FixedBatchLoader:
             "labels": labels, "masks": masks, "top_words": top,
             "bounds": {"it_pos_now": 0, "it_max": rows, "wrapped": False},
         }
+        self.batch["gts"] = [rng.integers(1, V, (5, L)) for _ in range(rows)]
 
     def get_batch(self, split):
         if split != "train":
@@ -713,7 +753,6 @@ def profile_train_step(torch, model, opt, loader, params, state):
     """One more bf16 step as train() runs it (batch fetch, copy to the card,
     the step, the loss read) under torch.profiler, after a step whose grads
     are checked leaf by leaf."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from recurrent_fusion_network_torch.training.criterion import make_criterion
@@ -739,26 +778,17 @@ def profile_train_step(torch, model, opt, loader, params, state):
         t1 = time.perf_counter()
         one()
         wall_ms = (time.perf_counter() - t1) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    if not spans:
+    summary = device_profile(prof)
+    if summary is None:
         log("train profile: the profiler recorded no device events; not measured")
         return dict(profile_wall_ms=wall_ms)
-    busy, cur_s, cur_e, by_name = 0.0, None, None, {}
-    for s0, e0, name in spans:
-        by_name[name] = by_name.get(name, 0.0) + (e0 - s0)
-        if cur_e is None or s0 > cur_e:
-            busy += 0.0 if cur_e is None else cur_e - cur_s
-            cur_s, cur_e = s0, e0
-        else:
-            cur_e = max(cur_e, e0)
-    busy = (busy + cur_e - cur_s) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    busy, n_events, by_name = summary
+    top = by_name[:12]
     log(f"train profile: one bf16 B={TRAIN_ROWS} step (batch copy included): wall "
         f"{wall_ms:.2f} ms, device busy {busy:.2f} ms, idle share {1 - busy / wall_ms:.3f}, "
-        f"{len(spans)} device events")
-    for name, us in top:
-        log(f"train profile:   {us / 1e3:8.3f} ms  {name[:110]}")
+        f"{n_events} device events")
+    for name, ms in top:
+        log(f"train profile:   {ms:8.3f} ms  {name[:110]}")
 
     # the same step with the batch already on the card: host dispatch and
     # device compute without the copy
@@ -770,21 +800,306 @@ def profile_train_step(torch, model, opt, loader, params, state):
         params, state, loss = step(params, state, *batch, LR, 0.0, gen)
     torch.cuda.synchronize()
     resident_ms = (time.perf_counter() - t1) / n * 1e3
-    copy_ms = by_name.get("Memcpy HtoD (Pageable -> Device)", 0.0) / 1e3
+    copy_ms = dict(by_name).get("Memcpy HtoD (Pageable -> Device)", 0.0)
     log(f"train: {n} bf16 B={TRAIN_ROWS} steps with the batch already on the card: "
         f"{resident_ms:.2f} ms per step; the profiled step's pageable host-to-device "
         f"copy of the batch: {copy_ms:.2f} ms")
     return dict(profile_wall_ms=wall_ms, profile_busy_ms=busy,
-                profile_events=len(spans), resident_step_ms=resident_ms,
-                copy_ms=copy_ms, profile_top=[(name[:80], us / 1e3) for name, us in top])
+                profile_events=n_events, resident_step_ms=resident_ms,
+                copy_ms=copy_ms, profile_top=[(name[:80], ms) for name, ms in top])
 
 
-def path_sums(site_rows, launches_key):
+# ---------------------------------------------------------------- 7. SCST
+
+
+def cider_scorer():
+    """bench.py::bench_rl's reward scorer: 1,000,000 random hashed document
+    frequencies (a COCO-sized table), ref_len log(113287), and the native
+    engine (it raises where it cannot be built)."""
+    import numpy as np
+
+    from recurrent_fusion_network_torch.rewards.cider_d import CiderD
+
+    g = np.random.default_rng(0)
+    df = {int(k): float(v) for k, v in zip(g.integers(1, 2 ** 62, 1_000_000),
+                                           g.integers(1, 50, 1_000_000))}
+    return CiderD(df, math.log(COCO_TRAIN_IMAGES), backend="native")
+
+
+def scst_sites(model):
+    """Forward and backward sites of one SCST iteration without PPO at
+    RL_ROWS, f32, with their launches per iteration ({"scst": n}): the
+    rollout encodes B rows and decodes 2B lanes (sampled + greedy), the
+    step re-evaluates B rows with gradients."""
+    S0, S, T = model.num_review_steps_0, model.num_review_steps, model.seq_length + 1
+    fwd = [(f"scst_stage1_enc{j}", 1, RL_ROWS, a, d, {"scst": 2 * S0})
+           for j, (a, d) in enumerate(zip(model.att_nums, model.att_feat_sizes))]
+    fwd.append(("scst_stage2", model.num_feat_array, RL_ROWS, S, model.rnn_size,
+                {"scst": 2 * S}))
+    fwd.append(("scst_decoder_rollout", 1, 2 * RL_ROWS, S, model.rnn_size, {"scst": T}))
+    fwd.append(("scst_decoder_step", 1, RL_ROWS, S, model.rnn_size, {"scst": T}))
+    return fwd, train_sites(model, RL_ROWS, path="scst", prefix="scst_")
+
+
+def first_token_flip(k_out, p_out):
+    """None when two rollouts (SampleOut over the same lanes) record the same
+    tokens; else (lane, step, kernel token a, plain token b, margin) at the
+    first step where they differ. Before that step every lane saw the same
+    tokens, so the kernel path chose a over b although the plain path's
+    scores ranked b first: with the same draw noise g, the gap between the
+    two perturbed scores is at most margin = (lk[a] - lk[b]) - (lp[a] -
+    lp[b]) of the two paths' log-probs there (g = 0 on greedy lanes)."""
+    diff = k_out.seq != p_out.seq
+    if not bool(diff.any()):
+        return None
+    step = int(diff.any(0).nonzero()[0, 0])
+    lane = int(diff[:, step].nonzero()[0, 0])
+    a, b = int(k_out.seq[lane, step]), int(p_out.seq[lane, step])
+    lk, lp = k_out.logprobs_all[lane, step], p_out.logprobs_all[lane, step]
+    return lane, step, a, b, float((lk[a] - lk[b]) - (lp[a] - lp[b]))
+
+
+def check_rl_kernel_vs_plain(torch, model, scorer):
+    """An f32 SCST iteration at SMALL_ROWS with the kernels and with the
+    plain versions patched in, from the same params and generator seed: the
+    2B-lane rollouts' tokens (a flip must be a near-tie, margin < 1e-5),
+    then one policy-gradient step of each path on the kernel path's tokens
+    and rewards: loss rtol 1e-5, every grad leaf rtol 2e-3 / atol 2e-5
+    (score biases atol only), the kernel path's grad leaves finite and
+    non-zero."""
+    from unittest import mock
+
+    from recurrent_fusion_network_torch.decoding.sample import sample
+    from recurrent_fusion_network_torch.kernels import additive_attention as aa
+    from recurrent_fusion_network_torch.ops import attention
+    from recurrent_fusion_network_torch.ops.initializers import tree_map
+    from recurrent_fusion_network_torch.rewards.self_critical import compute_reward
+    from recurrent_fusion_network_torch.training import train_rl_loop as rl
+    from recurrent_fusion_network_torch.training.criterion import make_rl_criterion
+    from recurrent_fusion_network_torch.training.optim import make_optimizer
+    from recurrent_fusion_network_torch.training.train_loop import device_batch
+
+    opt = train_opts(model)
+    data = FixedBatchLoader(model, SMALL_ROWS, 10).get_batch("train")
+    fc, att, _, _, top = device_batch(data, DEVICE)
+    base = model.init_params(torch.Generator(device=DEVICE).manual_seed(11), device=DEVICE)
+    fns = {"kernel": aa.additive_attention, "plain": aa.additive_attention_ref}
+    outs, used = {}, {}
+    for path, fn in fns.items():
+        got = []
+
+        def spy(*args, **kw):
+            got.append(sample(*args, **kw))
+            return got[-1]
+
+        before = (aa.launches, aa.bwd_launches)
+        with mock.patch.object(attention, "additive_attention", fn), \
+                mock.patch.object(rl, "sample", spy):
+            rl.make_rollout_fn(model)(base, fc, att,
+                                      torch.Generator(device=DEVICE).manual_seed(12))
+        torch.cuda.synchronize()
+        used[path] = [aa.launches - before[0], aa.bwd_launches - before[1]]
+        outs[path] = got[0]
+    flip = first_token_flip(outs["kernel"], outs["plain"])
+    if flip is None:
+        log(f"scst f32 B={SMALL_ROWS}: sampled and greedy tokens of the 2B-lane rollout "
+            f"identical with the kernels and with the plain versions")
+    else:
+        lane, step, a, b, margin = flip
+        log(f"scst f32 B={SMALL_ROWS}: rollout tokens differ first at lane {lane} step "
+            f"{step}: kernel {a}, plain {b}, log-prob margin {margin:.3e} (limit 1e-5)")
+        if not abs(margin) < 1e-5:
+            raise AssertionError(f"rollout token flip beyond a near-tie: {flip}")
+
+    B = SMALL_ROWS
+    seq, greedy = outs["kernel"].seq[:B], outs["kernel"].seq[B:]
+    rewards = compute_reward(scorer, seq.cpu().numpy(), greedy.cpu().numpy(), data["gts"])
+    reward = torch.as_tensor(rewards, dtype=torch.float32, device=DEVICE)
+    runs = {}
+    for path, fn in fns.items():
+        params = tree_map(torch.clone, base)
+        spy_tx = GradSpy(make_optimizer(opt))
+        step, _ = rl.make_rl_step(model, make_rl_criterion(opt), spy_tx)
+        state = spy_tx.init(params)
+        before = (aa.launches, aa.bwd_launches)
+        with mock.patch.object(attention, "additive_attention", fn):
+            _, _, loss = step(params, state, fc, att, seq, reward, top, RL_LR,
+                              torch.zeros_like(reward))
+            loss = loss.item()
+        used[path][0] += aa.launches - before[0]
+        used[path][1] += aa.bwd_launches - before[1]
+        if path == "kernel":
+            check_grads(torch, spy_tx.grads, "f32 SCST kernel step")
+        runs[path] = (loss, spy_tx.grads)
+        del spy_tx, state, params
+    if used != {"kernel": [130, 65], "plain": [0, 0]}:
+        raise AssertionError(f"SCST launches (fwd, bwd) per path {used}")
+    (kl, kg), (pl, pg) = runs["kernel"], runs["plain"]
+    bad_grads, worst_grad = [], 0.0
+    for (path, a), (_, b) in zip(_paths(kg), _paths(pg)):
+        rtol = 0.0 if _score_bias(path) else 2e-3
+        share = ((a - b).abs() / (2e-5 + rtol * b.abs())).max().item()
+        worst_grad = max(worst_grad, share)
+        if share > 1:
+            bad_grads.append(path)
+    loss_ok = abs(kl - pl) <= 1e-5 * abs(pl)
+    n_reward = int((rewards[:, 0] != 0).sum())
+    log(f"scst f32 B={SMALL_ROWS} step on the kernel path's rollout ({n_reward} of {B} "
+        f"rewards non-zero): loss kernel {kl!r} plain {pl!r} (rtol 1e-5: {loss_ok}); grads "
+        f"worst share of rtol 2e-3 / atol 2e-5 {worst_grad:.3f}; launches (fwd, bwd) "
+        f"{used}")
+    if bad_grads or not loss_ok:
+        raise AssertionError(f"f32 SCST kernel and plain steps differ; grads at "
+                             f"{bad_grads[:5]}")
+    del runs, kg, pg, base
+    torch.cuda.empty_cache()
+    return dict(rl_token_flip=flip, rl_loss_kernel=kl, rl_loss_plain=pl,
+                rl_grad_worst_share=worst_grad, rl_nonzero_rewards=n_reward)
+
+
+def train_scst(torch, model, scorer, card, counters, overlap):
+    """RL_ITERS f32 SCST iterations at RL_ROWS through train_rl() on a fixed
+    batch, with the launch counters reset just before and read just after:
+    130 + 65 launches per iteration, none on the kernels' scalar path,
+    finite losses and rewards, sampled lanes unlike the greedy ones in at
+    least half the rows; iteration time, images/s, peak memory."""
+    from unittest import mock
+
+    from recurrent_fusion_network_torch.training import train_rl_loop as rl
+
+    loader = FixedBatchLoader(model, RL_ROWS, 14)
+    opt = train_opts(model, rl_overlap=overlap)
+    stamps, differ = [], []
+    real = rl.compute_reward
+
+    def reward_spy(scorer_, gen, greedy, gts, **kw):
+        differ.append(float((gen != greedy).any(axis=1).mean()))
+        return real(scorer_, gen, greedy, gts, **kw)
+
+    def log_fn(line):
+        stamps.append(time.perf_counter())
+        log(f"scst: {line}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = c.bwd_launches = c.scalar_launches = 0  # main path starts here
+    t0 = time.perf_counter()
+    with mock.patch.object(rl, "compute_reward", reward_spy):
+        infos = rl.train_rl(opt, loader, scorer, max_iterations=RL_ITERS, log_fn=log_fn)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"additive_attention_fwd": sum(c.launches for c in counters),
+                "additive_attention_bwd": sum(c.bwd_launches for c in counters)}
+    scalar = sum(c.scalar_launches for c in counters)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rewards = [infos["loss_history"][i] for i in range(RL_ITERS)]
+    losses = [infos["train_loss_history"][i] for i in range(RL_ITERS)]
+    if launches != {"additive_attention_fwd": 130 * RL_ITERS,
+                    "additive_attention_bwd": 65 * RL_ITERS}:
+        raise AssertionError(f"launches {launches} over {RL_ITERS} SCST iterations "
+                             f"(expected 130 + 65 per iteration)")
+    if scalar:
+        raise AssertionError(f"SCST took the kernels' scalar path {scalar} times")
+    if not all(map(math.isfinite, rewards + losses)):
+        raise AssertionError(f"SCST rewards {rewards} or losses {losses} not finite")
+    if len(differ) != RL_ITERS or min(differ) < 0.5:
+        raise AssertionError(f"sampled lanes equal the greedy ones too often: {differ}")
+    steady = [b - a for a, b in zip(stamps[2:], stamps[3:])]
+    iter_ms = (stamps[-1] - stamps[2]) / len(steady) * 1e3
+    log(f"scst f32 B={RL_ROWS} rl_overlap={overlap}: {RL_ITERS} iterations through "
+        f"train_rl() in {wall:.3f} s (params init included); steady iteration "
+        f"{iter_ms:.2f} ms (mean over the last {len(steady)}; between log lines min "
+        f"{min(steady) * 1e3:.2f}, max {max(steady) * 1e3:.2f}), "
+        f"{RL_ROWS / iter_ms * 1e3:.1f} images/s; peak memory {peak_gb:.2f} GB; mean "
+        f"rewards {rewards}; losses {losses}; sampled lanes unlike greedy in a share "
+        f"{min(differ):.3f}+ of rows; launches {launches} (130 + 65 per iteration) on {card}")
+    return dict(launches=launches, iter_ms=iter_ms, images_per_s=RL_ROWS / iter_ms * 1e3,
+                peak_gb=peak_gb, rewards=rewards, losses=losses,
+                differ_min=min(differ)), infos
+
+
+def scst_split_and_profile(torch, model, scorer, params, state, card):
+    """Serial SCST iterations as bench.py::bench_rl times them, split into
+    the batch copy, the rollout to the tokens' readback, the host reward
+    (native CIDEr-D engine asserted) and the gradient step to its end; then
+    one iteration under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from recurrent_fusion_network_torch.rewards.self_critical import compute_reward
+    from recurrent_fusion_network_torch.training import train_rl_loop as rl
+    from recurrent_fusion_network_torch.training.criterion import make_rl_criterion
+    from recurrent_fusion_network_torch.training.optim import make_optimizer
+    from recurrent_fusion_network_torch.training.train_loop import device_batch
+
+    if scorer.engine != "native":
+        raise AssertionError(f"CIDEr-D scores with its {scorer.engine} engine, not the native one")
+    loader = FixedBatchLoader(model, RL_ROWS, 14)
+    opt = train_opts(model)
+    rollout = rl.make_rollout_fn(model)
+    step, _ = rl.make_rl_step(model, make_rl_criterion(opt), make_optimizer(opt))
+    gen = torch.Generator(device=DEVICE).manual_seed(15)
+    parts = {"copy_ms": [], "rollout_ms": [], "reward_host_ms": [], "grad_step_ms": []}
+
+    def one():
+        nonlocal params, state
+        t0 = time.perf_counter()
+        data = loader.get_batch("train")
+        fc, att, _, _, top = device_batch(data, DEVICE)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        seq, greedy = rollout(params, fc, att, gen)
+        seq_np, greedy_np = seq.cpu().numpy(), greedy.cpu().numpy()
+        t2 = time.perf_counter()
+        rewards = compute_reward(scorer, seq_np, greedy_np, data["gts"])
+        t3 = time.perf_counter()
+        reward = torch.as_tensor(rewards, dtype=torch.float32, device=DEVICE)
+        params, state, loss = step(params, state, fc, att, seq, reward, top, RL_LR,
+                                   torch.zeros_like(reward))
+        float(loss)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for k, a, b in (("copy_ms", t0, t1), ("rollout_ms", t1, t2),
+                        ("reward_host_ms", t2, t3), ("grad_step_ms", t3, t4)):
+            parts[k].append((b - a) * 1e3)
+        return (t4 - t0) * 1e3
+
+    one()  # warm
+    for v in parts.values():
+        v.clear()
+    totals = [one() for _ in range(3)]
+    split = {k: statistics.median(v) for k, v in parts.items()}
+    log(f"scst serial split, f32 B={RL_ROWS} (medians of 3): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in split.items()) + f"; iteration {statistics.median(totals):.2f} "
+        f"ms; reward engine {scorer.engine} on {card}")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall_ms = one()
+    out = dict(split, serial_iter_ms=statistics.median(totals), profile_wall_ms=wall_ms)
+    summary = device_profile(prof)
+    if summary is None:
+        log("scst profile: the profiler recorded no device events; not measured")
+        return out
+    busy, n_events, by_name = summary
+    top = by_name[:12]
+    log(f"scst profile: one serial f32 B={RL_ROWS} iteration (batch copy included): wall "
+        f"{wall_ms:.2f} ms, device busy {busy:.2f} ms, idle share {1 - busy / wall_ms:.3f}, "
+        f"{n_events} device events")
+    for name, ms in top:
+        log(f"scst profile:   {ms:8.3f} ms  {name[:110]}")
+    out.update(profile_busy_ms=busy, profile_events=n_events,
+               profile_top=[(name[:80], ms) for name, ms in top])
+    return out
+
+
+def path_sums(site_rows, path):
     """ms, plain_ms and bound_ms summed over the launches of one path (one
-    beam-3 batch or one train step), and bound / ms of the sum."""
-    out = {k: sum(r[k] * r[launches_key] for r in site_rows)
+    beam-3 batch, one train step or one SCST iteration), and bound / ms of
+    the sum."""
+    out = {k: sum(r[k] * r["launches"].get(path, 0) for r in site_rows)
            for k in ("ms", "plain_ms", "bound_ms")}
-    out["launches"] = sum(r[launches_key] for r in site_rows)
+    out["launches"] = sum(r["launches"].get(path, 0) for r in site_rows)
     out["bound_over_ms"] = out["bound_ms"] / out["ms"]
     return out
 
@@ -804,12 +1119,18 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     # ---- 2. build
+    from concurrent.futures import ThreadPoolExecutor
+
     from recurrent_fusion_network_torch.kernels import additive_attention as aa
     from recurrent_fusion_network_torch.kernels import build
+    from recurrent_fusion_network_torch.rewards import native
 
     t0 = time.perf_counter()
-    logs = build.build_all()
-    log(f"build: {sorted(logs)} in {time.perf_counter() - t0:.2f} s")
+    with ThreadPoolExecutor(1) as pool:  # g++ beside the nvcc processes
+        cider = pool.submit(native.build)
+        logs = build.build_all()
+        cider.result()
+    log(f"build: {sorted(logs)} and {native.LIB.name} in {time.perf_counter() - t0:.2f} s")
     for name, out in logs.items():
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
@@ -820,10 +1141,10 @@ def main():
 
     model = flagship(RecurrentFusionModel)
     sites = attention_sites(model)
-    if sum(s[-2] for s in sites) != 64 or sum(s[-1] for s in sites) != 65:
+    if per_path(sites, "serve") != 64 or per_path(sites, "train") != 65:
         raise AssertionError(f"call sites {sites} do not add up to 64 launches per "
                              f"batch and 65 per train step")
-    rows = check_attention_kernel(torch, aa, sites)
+    rows = check_attention_kernel(torch, aa, sites, (torch.float32, torch.bfloat16))
 
     # ---- 4. slice
     t0 = time.perf_counter()
@@ -841,25 +1162,59 @@ def main():
 
     # ---- 6. train
     tsites = train_sites(model, TRAIN_ROWS)
-    if sum(s[-1] for s in tsites) != 65:
+    if per_path(tsites, "train") != 65:
         raise AssertionError(f"train call sites {tsites} do not add up to 65 per step")
-    bwd_rows = check_attention_backward(torch, aa, tsites)
+    bwd_rows = check_attention_backward(torch, aa, tsites, (torch.float32, torch.bfloat16))
     f32_check = check_train_kernel_vs_plain(torch, model)
     trained = train_bf16(torch, model, card, [aa])
 
+    # ---- 7. SCST
+    fwd_sites, rl_bwd_sites = scst_sites(model)
+    if per_path(fwd_sites, "scst") != 130 or per_path(rl_bwd_sites, "scst") != 65:
+        raise AssertionError(f"SCST call sites do not add up to 130 + 65 per iteration: "
+                             f"{fwd_sites} {rl_bwd_sites}")
+    scst_rows = check_attention_kernel(torch, aa, fwd_sites, (torch.float32,))
+    scst_bwd_rows = check_attention_backward(torch, aa, rl_bwd_sites, (torch.float32,))
+    t0 = time.perf_counter()
+    scorer = cider_scorer()
+    log(f"scst: CIDEr-D scorer with 1,000,000 df entries, engine {scorer.engine}, built "
+        f"in {time.perf_counter() - t0:.2f} s")
+    rl_check = check_rl_kernel_vs_plain(torch, model, scorer)
+    scst_on, infos = train_scst(torch, model, scorer, card, [aa], overlap=1)
+    params, state = infos["final_params"], infos["final_opt_state"]
+    del infos
+    split = scst_split_and_profile(torch, model, scorer, params, state, card)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del params, state
+    torch.cuda.empty_cache()
+    scst_off, _ = train_scst(torch, model, scorer, card, [aa], overlap=0)
+    log(f"scst: images/s rl_overlap=1 {scst_on['images_per_s']:.1f}, rl_overlap=0 "
+        f"{scst_off['images_per_s']:.1f}; peak memory {peak_gb:.2f} GB (train_rl and the "
+        f"serial iterations) on {card}")
+    scst_launches = {k: scst_on["launches"][k] + scst_off["launches"][k]
+                     for k in scst_on["launches"]}
+
     bf16 = [r for r in rows if r["dtype"] == "bfloat16"]
     bwd16 = [r for r in bwd_rows if r["dtype"] == "bfloat16"]
-    serve, train_fwd = path_sums(bf16, "launches_per_batch"), path_sums(bf16, "launches_per_step")
-    train_bwd = path_sums(bwd16, "launches_per_step")
+    serve, train_fwd = path_sums(bf16, "serve"), path_sums(bf16, "train")
+    train_bwd = path_sums(bwd16, "train")
+    scst_fwd, scst_bwd = path_sums(scst_rows, "scst"), path_sums(scst_bwd_rows, "scst")
+    for sums, dtype in ((serve, "bfloat16"), (train_fwd, "bfloat16"),
+                        (train_bwd, "bfloat16"), (scst_fwd, "float32"),
+                        (scst_bwd, "float32")):
+        sums["dtype"] = dtype
+    rows, bwd_rows = rows + scst_rows, bwd_rows + scst_bwd_rows
     kernels = [{
         "name": "additive_attention_fwd",
         "route": "cuda",
         "source": "recurrent_fusion_network_torch/csrc/additive_attention.cu",
         "replaces": "recurrent_fusion_network_tpu/ops/attention.py:46",
         "launches": launches["additive_attention"]
-        + trained["launches"]["additive_attention_fwd"],
+        + trained["launches"]["additive_attention_fwd"]
+        + scst_launches["additive_attention_fwd"],
         "launches_by_path": {"serve": launches["additive_attention"],
-                             "train": trained["launches"]["additive_attention_fwd"]},
+                             "train": trained["launches"]["additive_attention_fwd"],
+                             "scst": scst_launches["additive_attention_fwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         # per beam-3 bf16 batch at B = 512: the sum over its 64 launches
         "ms": serve["ms"],
@@ -867,8 +1222,9 @@ def main():
         "bound_ms": serve["bound_ms"],
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in bf16) else "operations",
         "library_ms": None,  # no single PyTorch call computes additive attention
-        # the same sums per bf16 train step at B = 512 (65 launches) beside them
-        "by_path": {"serve": serve, "train": train_fwd},
+        # the same sums per bf16 train step at B = 512 (65 launches) and per
+        # f32 SCST iteration at B = 256 (130 launches) beside them
+        "by_path": {"serve": serve, "train": train_fwd, "scst": scst_fwd},
         "ok": all(r["ok"] and r["bitwise_repeat"] for r in rows),
         "sites": rows,
     }, {
@@ -877,8 +1233,10 @@ def main():
         "source": "recurrent_fusion_network_torch/csrc/additive_attention_bwd.cu",
         # the gradient of attend under jax.value_and_grad in make_train_step
         "replaces": "recurrent_fusion_network_tpu/ops/attention.py:46",
-        "launches": trained["launches"]["additive_attention_bwd"],
-        "launches_by_path": {"train": trained["launches"]["additive_attention_bwd"]},
+        "launches": trained["launches"]["additive_attention_bwd"]
+        + scst_launches["additive_attention_bwd"],
+        "launches_by_path": {"train": trained["launches"]["additive_attention_bwd"],
+                             "scst": scst_launches["additive_attention_bwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
         # errors relative to the largest plain value of each output
         "max_rel_err": max(r["max_rel_err"] for r in bwd_rows),
@@ -886,16 +1244,20 @@ def main():
         "ms": train_bwd["ms"],
         "plain_ms": train_bwd["plain_ms"],
         "bound_ms": train_bwd["bound_ms"],
-        "by_path": {"train": train_bwd},
+        "by_path": {"train": train_bwd, "scst": scst_bwd},
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in bwd16) else "operations",
         "library_ms": None,  # no single PyTorch call computes its gradient
         "ok": all(r["ok"] and r["bitwise_repeat"] for r in bwd_rows),
         "sites": bwd_rows,
     }]
     log("train summary: " + json.dumps({**f32_check, **trained}))
+    log("scst summary: " + json.dumps({**rl_check, "overlap_on": scst_on,
+                                        "overlap_off": scst_off, **split,
+                                        "peak_gb": peak_gb}))
     for k in kernels:
         for path, sums in k["by_path"].items():
-            log(f"kernel {k['name']} per bf16 {path} path ({sums['launches']} launches): "
+            log(f"kernel {k['name']} per {sums['dtype']} {path} path ({sums['launches']} "
+                f"launches): "
                 f"ms {sums['ms']:.4f} plain_ms {sums['plain_ms']:.4f} bound_ms "
                 f"{sums['bound_ms']:.4f} bound/ms {sums['bound_over_ms']:.3f}")
     log(card_line())

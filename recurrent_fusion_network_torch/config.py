@@ -3,9 +3,9 @@
 The port's own copy of the parts of ``recurrent_fusion_network_tpu/
 config.py`` and ``eval.py::merge_checkpoint_opt`` that serving and the XE
 train step read: the flag names and defaults of the model options, the
-serving options of the root ``serve.py`` (the serve CLI's flags), the
-training options with the JAX package's defaults (``Options`` only: the
-training CLI is not ported yet), and the checkpoint merge (the CLI wins for
+serving options of the root ``serve.py`` (the serve CLI's flags), the XE
+and SCST training options with the JAX package's defaults (``Options``
+only: the training CLIs are not ported yet), and the checkpoint merge (the CLI wins for
 runtime knobs, the checkpoint's saved opt for the architecture).
 """
 
@@ -52,7 +52,8 @@ def _defaults() -> dict:
 
 
 def _train_defaults() -> dict:
-    """XE training options, the JAX package's flag names and defaults."""
+    """XE and SCST training options, the JAX package's flag names and
+    defaults."""
     return dict(
         seed=100,
         start_from=None,  # checkpoint directory to resume from
@@ -85,6 +86,22 @@ def _train_defaults() -> dict:
         save_checkpoint_every=5000,
         losses_log_every=25,
         xe_overlap=1,  # dispatch step k+1 before reading loss k
+        # SCST (train_rl)
+        optim_rl_lr=5e-5,
+        optim_rl_lr_ratio=2.0,
+        load_lr=0,  # RL lr base = min(XE lr history) / optim_rl_lr_ratio
+        use_ppo=0,
+        ppo_clip=0.2,
+        ppo_k=10,
+        entropy_reg=0.01,
+        use_baseline=1,  # subtract the greedy rollout's reward
+        cider_weight=1.0,
+        bleu4_weight=0.0,
+        spice_weight=0.0,  # SPICE rewards: not ported (train_rl raises)
+        rl_resume=0,  # with start_from: resume from the rl_ checkpoint triple
+        rl_overlap=1,  # dispatch rollout k+1 before reading loss k
+        load_best_score=1,
+        num_eval_no_improve=10,
         # set at run time (by the loader and the schedules)
         vocab_size=None,
         seq_length=None,

@@ -1,4 +1,4 @@
-"""Training criterions of the XE step.
+"""Training criterions of the XE and SCST steps.
 
 Counterpart of ``recurrent_fusion_network_tpu/ops/losses.py``:
 
@@ -7,6 +7,9 @@ Counterpart of ``recurrent_fusion_network_tpu/ops/losses.py``:
                             JAX package's static target truncation
   review_net_ensemble_loss  XE + the reason loss averaged over RFNet's M+1
                             reason heads
+  reward_loss               the SCST policy-gradient loss (optionally PPO's
+                            clipped surrogate) with the entropy term
+  review_net_reward_loss    reward_loss + the averaged reason loss
 
 Every loss divides by the batch size B, not by the mask sum. The equations
 are the JAX package's, so dtypes follow its promotion: log-probabilities
@@ -65,3 +68,62 @@ def review_net_ensemble_loss(log_prob, target, mask, top_pred_list, top_true,
     disc = sum(multilabel_margin_loss(tp, top_true, max_targets=max_targets)
                for tp in top_pred_list)
     return xe + disc * reason_weight / len(top_pred_list)
+
+
+# ---------------------------------------------------------------- SCST
+
+
+def _rl_masks(seq):
+    """mask_0 = seq > 0; mask = [1, mask_0[:, :-1]]: one step more, so the
+    EOS step is rewarded."""
+    mask_0 = (seq > 0).to(torch.float32)
+    mask = torch.cat([torch.ones_like(mask_0[:, :1]), mask_0[:, :-1]], dim=1)
+    return mask_0, mask
+
+
+def _entropy_term(logprobs_all, mask_0, T):
+    """sum_v p log p per step, masked by mask_0."""
+    lp = logprobs_all[:, :T, :]
+    return (lp * torch.exp(lp)).sum(dim=2) * mask_0
+
+
+def reward_loss(sample_logprobs, seq, reward, logprobs_all, entropy_reg,
+                sample_logprobs_old=None, *, use_ppo=False, ppo_clip=0.2):
+    """SCST policy-gradient loss with the entropy term.
+
+    sample_logprobs: (B, T) log-prob of each sampled token; seq: (B, T)
+    sampled ids, 0 once finished; reward: (B, T); logprobs_all: (B, >=T, V)
+    per-step log-distributions. With use_ppo, the clipped surrogate clamps
+    the ratio exp(a) / (1e-5 + exp(b)), the reference's form: the epsilon
+    shrinks the ratio of tokens with log-prob below ln(1e-5), kept for
+    parity with the JAX package.
+    """
+    B, T = sample_logprobs.shape
+    mask_0, mask = _rl_masks(seq)
+    if use_ppo:
+        if sample_logprobs_old is None:
+            raise ValueError("use_ppo=True requires sample_logprobs_old (the frozen "
+                             "rollout log-probs of make_rl_step's old_logprobs)")
+        ratio = torch.exp(sample_logprobs) / (1e-5 + torch.exp(sample_logprobs_old))
+        surr1 = ratio * reward
+        surr2 = torch.clamp(ratio, 1.0 - ppo_clip, 1.0 + ppo_clip) * reward
+        out = -torch.minimum(surr1, surr2) * mask
+    else:
+        out = -sample_logprobs * reward * mask
+    ent = _entropy_term(logprobs_all, mask_0, T)
+    return out.sum() / B + entropy_reg * ent.sum() / B
+
+
+def review_net_reward_loss(sample_logprobs, seq, reward, logprobs_all, entropy_reg,
+                           top_pred, top_true, reason_weight, sample_logprobs_old=None,
+                           *, use_ppo=False, ppo_clip=0.2, max_targets=None):
+    """SCST loss + the reason loss; ``top_pred`` is one (B, C) head or a
+    list of them (RFNet's M+1 heads, averaged)."""
+    base = reward_loss(sample_logprobs, seq, reward, logprobs_all, entropy_reg,
+                       sample_logprobs_old, use_ppo=use_ppo, ppo_clip=ppo_clip)
+    if isinstance(top_pred, (list, tuple)):
+        disc = sum(multilabel_margin_loss(tp, top_true, max_targets=max_targets)
+                   for tp in top_pred) / len(top_pred)
+    else:
+        disc = multilabel_margin_loss(top_pred, top_true, max_targets=max_targets)
+    return base + disc * reason_weight

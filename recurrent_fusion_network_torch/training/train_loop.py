@@ -45,19 +45,26 @@ def make_train_step(model, crit, tx, compute_dtype=None):
 
     def step(params, opt_state, fc, att, labels, masks, top_words, lr, ss_prob,
              generator):
-        live = [p.detach().requires_grad_() for p in tree_leaves(params)]
-        p = tree_unflatten(params, live)
-        if compute_dtype is not None:
-            p = cast_tree(p, compute_dtype)
-        lps, reason = model.forward(p, fc, att, labels, ss_prob=ss_prob,
-                                    generator=generator, training=True)
-        loss = crit(lps, labels, masks, reason, top_words)
-        grads = torch.autograd.grad(loss, live, allow_unused=True,
-                                    materialize_grads=True)
-        direction, opt_state = tx.update(tree_unflatten(params, grads), opt_state, params)
-        return apply_updates(params, direction, lr), opt_state, loss.detach()
+        def loss_of(p):
+            if compute_dtype is not None:
+                p = cast_tree(p, compute_dtype)
+            lps, reason = model.forward(p, fc, att, labels, ss_prob=ss_prob,
+                                        generator=generator, training=True)
+            return crit(lps, labels, masks, reason, top_words)
+
+        return grad_update(params, opt_state, tx, lr, loss_of)
 
     return step
+
+
+def grad_update(params, opt_state, tx, lr, loss_of):
+    """The gradient of ``loss_of(params)`` through the optimizer ``tx``,
+    applied in place: -> (params, opt_state, loss as a device tensor)."""
+    live = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    loss = loss_of(tree_unflatten(params, live))
+    grads = torch.autograd.grad(loss, live, allow_unused=True, materialize_grads=True)
+    direction, opt_state = tx.update(tree_unflatten(params, grads), opt_state, params)
+    return apply_updates(params, direction, lr), opt_state, loss.detach()
 
 
 def device_batch(data, device, compute_dtype=None):
@@ -74,14 +81,19 @@ def device_batch(data, device, compute_dtype=None):
             torch.as_tensor(data["top_words"], device=device))
 
 
-def _resume(opt, model, loader, rank, device):
-    """-> (params, saved optimizer state or None, infos) of opt.start_from."""
+def resume(opt, model, loader, rank, device, *, best=False, prefix="",
+           with_opt_state=True):
+    """-> (params, saved optimizer state or None, infos) of the checkpoint
+    triple ``{prefix}..._{opt.load_model_id}_{rank}[-best]`` in
+    opt.start_from, on ``device``; the loader's state restored. The
+    optimizer file is read only ``with_opt_state``."""
     params_np, infos = load_checkpoint(opt.start_from, opt.load_model_id, rank,
-                                       best=False)
+                                       best=best, prefix=prefix)
     assert_arch_matches(opt, infos.get("opt", {}))
     params = params_from_jax(params_np)
     check_params(model, params)
-    saved = load_optimizer(opt.start_from, opt.load_model_id, rank, best=False)
+    saved = (load_optimizer(opt.start_from, opt.load_model_id, rank, best=best,
+                            prefix=prefix) if with_opt_state else None)
     opt_state = None if saved is None else opt_state_from_jax(saved, model)
     if "iterators" in infos:
         loader.restore_state(infos["iterators"], infos["split_image_id"],
@@ -94,7 +106,7 @@ def _resume(opt, model, loader, rank, device):
     return to_dev(params), opt_state, infos
 
 
-def _state_fits(state, tx) -> bool:
+def state_fits(state, tx) -> bool:
     if tx.name == "adam":
         return isinstance(state, AdamState)
     return isinstance(state, SgdState) and (state.trace is None) == (not tx.momentum)
@@ -116,8 +128,8 @@ def train(opt, loader, *, rank: int = 0, max_iterations: Optional[int] = None,
     tx = make_optimizer(opt)
     infos, opt_state = {}, None
     if opt.start_from is not None:
-        params, opt_state, infos = _resume(opt, model, loader, rank, device)
-        if opt_state is not None and not _state_fits(opt_state, tx):
+        params, opt_state, infos = resume(opt, model, loader, rank, device)
+        if opt_state is not None and not state_fits(opt_state, tx):
             raise ValueError(
                 f"the checkpoint's optimizer state {type(opt_state).__name__} does "
                 f"not fit --optim {opt.optim} (momentum {opt.optim_momentum})")

@@ -83,6 +83,24 @@ def test_kernel_plan_takes_several_rows_per_block_at_the_small_sites():
     assert aa._plan(8, 2048, 64, torch.float32, True)[0] == 1
 
 
+# f32 call sites of the SCST iteration (flagship widths, B = 256): stage I at
+# N = B, the rollout's decoder at N = 2B, the step's decoder at N = B
+SCST_SITES = [(196, 2048), (64, 1536), (64, 1280), (49, 2208), (8, 512)]
+
+
+@pytest.mark.parametrize("A, D", SCST_SITES)
+def test_kernel_plan_takes_the_vector_path_at_the_scst_sites(A, D):
+    """The layout of each direction at the f32 SCST widths, and the 16-byte
+    path for contiguous tensors (the row count N does not enter the plan;
+    two rows stand for 256 or 512)."""
+    for backward in (False, True):
+        R, stages, stage, smem = aa._plan(A, 512, D, torch.float32, backward)
+        assert R == (4 if A <= 8 else 1) and stages == 2
+        assert stage % 16 == 0 and stage >= max(512, D) * 4 and smem <= aa.MAX_SHARED_BYTES
+    _, keys, _, _, values = _kernel_inputs(N=2, A=A, D=D, h=512)
+    assert aa._vec(512, D, keys, values) == 1
+
+
 @pytest.mark.parametrize("case, vec", [("aligned", 1), ("odd_h", 0), ("odd_d", 0),
                                        ("misaligned_keys", 0), ("misaligned_values", 0)])
 def test_kernel_takes_its_scalar_path_for_odd_widths_and_unaligned_inputs(case, vec):
@@ -142,6 +160,11 @@ FWD_SHAPES = {
     "one_position": (3, 5, 1, 64, 64, False),
     "stage1": (1, 6, 196, 512, 2048, False),
     "misaligned": (1, 5, 49, 512, 2208, True),                  # scalar path
+    # SCST sites (B = 256): stage I at N = B, the decoder at 2B and at B
+    "scst_stage1": (1, 256, 196, 512, 2048, False),
+    "scst_stage1_enc3": (1, 256, 49, 512, 2208, False),
+    "scst_rollout_decoder": (1, 512, 8, 512, 512, False),
+    "scst_step_decoder": (1, 256, 8, 512, 512, False),
 }
 
 
@@ -263,6 +286,9 @@ def test_backward_wrapper_rejects_what_the_kernel_does_not_take(case):
     (3, 5, 1, 64, 64, False, True, False),
     (1, 6, 196, 512, 2048, False, False, False),
     (1, 5, 49, 512, 2208, False, True, True),   # scalar path: unaligned keys, values
+    (1, 256, 196, 512, 2048, False, False, False),  # SCST step, stage I
+    (5, 256, 8, 512, 512, False, True, False),      # SCST step, stage II
+    (1, 256, 8, 512, 512, False, True, False),      # SCST step, decoder
 ])
 def test_backward_kernel_matches_plain_version_on_the_card(cuda, dtype, groups, N, A, h, D,
                                                            masked, need_dvalues, misaligned):
