@@ -14,8 +14,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
               every shape the serving and training paths give it (flagship
               widths, B = 512: stage I, stage II with G = 5, the decoder at
               B * beam 3 rows and at B rows), in f32 and bf16, with errors, a
-              bitwise repeat, device times (torch.profiler; CUDA-event times
-              beside them), the bound (bytes / 3.35 TB/s vs operations /
+              bitwise repeat, device times (CUDA events around calls queued
+              behind a busy stream; torch.profiler's kernel times and event
+              times with the host's launch gaps beside them), the bound
+              (bytes / 3.35 TB/s vs operations /
               67 TFLOP/s f32) and achieved GB/s; sums per beam-3 batch and
               per train step;
   4. slice:   the flagship RecurrentFusionModel (tied keys, random weights
@@ -55,12 +57,35 @@ Phases, in order; any failure exits non-zero and prints no result line:
               after each (130 + 65 launches per iteration, none on the
               scalar path), iteration time and images/s; serial iterations
               split into batch copy, rollout, host reward and grad step;
-              one profiled iteration; peak memory.
+              one profiled iteration; peak memory;
+  8. drivers: the training and evaluation CLIs on a data set at the flagship
+              widths written under build/ (9,487 words, 300 / 100 / 100
+              train / val / test images x 5 captions, packed stores of the
+              five registry encoders: 1.6 GB; 25 GB free asked for, as a
+              flagship triple is 5.4 GB): main (bf16, 100 images x 5, 21
+              steps, a boundary at 20 with beam-3 eval_split, the 8 metrics
+              and the triples), eval of the best triple on the test split,
+              main_rl (f32, 51 images x 5) warm-started from it, 21
+              iterations with a boundary at 40, under --rl_overlap 1 and 0.
+              Counters reset before and read after each run: 65 + 65
+              launches per XE step, 130 + 65 per SCST iteration, 65 + 64 per
+              eval batch, none on the scalar path; every launch's shape
+              recorded, and both kernels checked against their plain
+              versions at each of those shapes (tolerances and bitwise
+              repeat of phases 3 and 6; times summed per eval batch and
+              over the phase); metrics finite; the files the JAX package's
+              tags name. Prints step / iteration ms (median and quartiles of
+              the fetch-to-fetch gaps clear of a boundary), the side-stream
+              batch copy and the share of it under the step before, eval
+              (decode vs metrics) and triple-write ms, and the optimizer
+              file's write with the checkpoint writer's pure-Python pickler
+              against the C pickler. Files are deleted when done.
 The line before the last is the kernels JSON, the last line the device JSON.
 """
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import math
@@ -154,7 +179,8 @@ def device_ms(torch, fn, input_sets, reps=20, attempts=3):
     activities (kernels, copies) that `reps` calls put on the card, from
     torch.profiler, so the host's launch gaps are not counted. None when
     the profiler records no device activity in `attempts` tries (it does so
-    now and then on this machine); callers then time with CUDA events."""
+    now and then). Printed beside ``queued_ms``: after phase 8's CLI runs it
+    read up to 2.5x below the bytes' bound, so it is not the reported time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -169,8 +195,47 @@ def device_ms(torch, fn, input_sets, reps=20, attempts=3):
                        if e.device_type == DeviceType.CUDA)
         if total_us > 0:
             return total_us / reps / 1e3
-    log("timing: the profiler recorded no device time; CUDA events instead")
+    log("timing: the profiler recorded no device time")
     return None
+
+
+def queued_ms(torch, fn, input_sets, reps=20):
+    """Mean device time per call of ``reps`` back-to-back calls queued
+    behind a run of matmuls, so the host queues them while the card is
+    still busy: the time between CUDA events just after the matmuls and
+    after the last call, which counts the card's own gaps between kernels
+    but none of the host's. A longer run of matmuls where the host had not
+    queued every call before the run ended."""
+    fn(*input_sets[0])
+    x = torch.randn(2048, 2048, device=DEVICE)
+    torch.cuda.synchronize()
+    for depth in (16, 64, 256):  # 2048^3 f32 products, about 0.3 ms each
+        for _ in range(depth):
+            torch.mm(x, x)
+        head = torch.cuda.Event()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        head.record()
+        start.record()
+        for i in range(reps):
+            fn(*input_sets[i % len(input_sets)])
+        end.record()
+        queued_in_time = not head.query()
+        torch.cuda.synchronize()
+        if queued_in_time:
+            return start.elapsed_time(end) / reps
+    raise AssertionError("timing: the host did not queue the calls within 256 matmuls")
+
+
+def site_times(torch, kernel, plain, sets):
+    """ms and plain_ms as ``queued_ms`` gives them, beside the profiler's
+    kernel time of each (None where it recorded none) and the CUDA-event
+    time of the kernel with the host's launch gaps."""
+    return dict(ms=queued_ms(torch, kernel, sets),
+                plain_ms=queued_ms(torch, plain, sets, reps=5),
+                profiler_ms=device_ms(torch, kernel, sets),
+                profiler_plain_ms=device_ms(torch, plain, sets, reps=5),
+                event_ms=event_ms(torch, kernel, sets))
 
 
 def check_attention_kernel(torch, aa, sites, dtypes):
@@ -207,15 +272,12 @@ def check_attention_kernel(torch, aa, sites, dtypes):
             ops = G * N * A * (4 * HID + 2 * D + 3)
             n_sets = max(1, min(8, -(-200_000_000 // nbytes)))
             sets = [ins] + [make() for _ in range(n_sets - 1)]
-            ev_ms = event_ms(torch, aa.additive_attention, sets)
-            ms = device_ms(torch, aa.additive_attention, sets) or ev_ms
-            plain_ms = (device_ms(torch, aa.additive_attention_ref, sets, reps=5)
-                        or event_ms(torch, aa.additive_attention_ref, sets, reps=5))
+            times = site_times(torch, aa.additive_attention, aa.additive_attention_ref, sets)
+            ms, plain_ms = times["ms"], times["plain_ms"]
             bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
             row = dict(site=name, dtype=dname, shape=[G, N, A, HID, D],
                        launches=launches, max_abs_err=err, max_rel_err=rel, ok=ok,
-                       bitwise_repeat=repeat,
-                       ms=ms, plain_ms=plain_ms, event_ms=ev_ms, bound_ms=bound_ms,
+                       bitwise_repeat=repeat, **times, bound_ms=bound_ms,
                        bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
                        else "operations", bytes=nbytes, gb_per_s=nbytes / ms / 1e6)
             log(f"kernel additive_attention_fwd {name} {dname} G={G} N={N} A={A} "
@@ -223,7 +285,8 @@ def check_attention_kernel(torch, aa, sites, dtypes):
                 f"(rtol {tol['rtol']}, atol {tol['atol']}) ok={ok} bitwise repeat={repeat} "
                 f"ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} "
                 f"bound/ms {bound_ms / ms:.3f} {row['gb_per_s']:.1f} GB/s "
-                f"(events incl. launch gaps: {ev_ms:.4f} ms)")
+                f"(profiler: {times['profiler_ms']} / plain {times['profiler_plain_ms']} ms; "
+                f"events incl. launch gaps: {times['event_ms']:.4f} ms)")
             if not (ok and repeat):
                 raise AssertionError(f"additive_attention_fwd disagrees at {name} {dname}")
             results.append(row)
@@ -492,15 +555,13 @@ def check_attention_backward(torch, aa, sites, dtypes):
             ops = G * N * A * (9 * HID + (3 if need_dvalues else 2) * D)
             n_sets = max(1, min(8, -(-200_000_000 // nbytes)))
             sets = [ins] + [make() for _ in range(n_sets - 1)]
-            ev_ms = event_ms(torch, kernel, sets)
-            ms = device_ms(torch, kernel, sets) or ev_ms
-            plain_ms = (device_ms(torch, plain, sets, reps=5)
-                        or event_ms(torch, plain, sets, reps=5))
+            times = site_times(torch, kernel, plain, sets)
+            ms, plain_ms = times["ms"], times["plain_ms"]
             bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
             row = dict(site=name, dtype=dname, shape=[G, N, A, HID, D],
                        dvalues=need_dvalues, launches=launches,
                        max_abs_err=err, max_rel_err=rel, ok=ok, bitwise_repeat=repeat,
-                       ms=ms, plain_ms=plain_ms, event_ms=ev_ms,
+                       **times,
                        bound_ms=max(bytes_ms, ops_ms),
                        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                        bytes=nbytes, gb_per_s=nbytes / ms / 1e6)
@@ -509,7 +570,9 @@ def check_attention_backward(torch, aa, sites, dtypes):
                 f"(rtol {tol['rtol']}, atol {tol['atol']} x max|plain|) ok={ok} "
                 f"bitwise repeat={repeat} ms {ms:.4f} plain_ms {plain_ms:.4f} "
                 f"bound_ms {row['bound_ms']:.4f} bound/ms {row['bound_ms'] / ms:.3f} "
-                f"{row['gb_per_s']:.1f} GB/s (events incl. launch gaps: {ev_ms:.4f} ms)")
+                f"{row['gb_per_s']:.1f} GB/s (profiler: {times['profiler_ms']} / plain "
+                f"{times['profiler_plain_ms']} ms; events incl. launch gaps: "
+                f"{times['event_ms']:.4f} ms)")
             if not (ok and repeat):
                 raise AssertionError(f"additive_attention_bwd disagrees at {name} {dname}")
             results.append(row)
@@ -800,10 +863,10 @@ def profile_train_step(torch, model, opt, loader, params, state):
         params, state, loss = step(params, state, *batch, LR, 0.0, gen)
     torch.cuda.synchronize()
     resident_ms = (time.perf_counter() - t1) / n * 1e3
-    copy_ms = dict(by_name).get("Memcpy HtoD (Pageable -> Device)", 0.0)
+    copy_ms = sum(ms for name, ms in by_name if name.startswith("Memcpy HtoD"))
     log(f"train: {n} bf16 B={TRAIN_ROWS} steps with the batch already on the card: "
-        f"{resident_ms:.2f} ms per step; the profiled step's pageable host-to-device "
-        f"copy of the batch: {copy_ms:.2f} ms")
+        f"{resident_ms:.2f} ms per step; the profiled step's host-to-device copy of the "
+        f"batch (pinned, side stream): {copy_ms:.2f} ms")
     return dict(profile_wall_ms=wall_ms, profile_busy_ms=busy,
                 profile_events=n_events, resident_step_ms=resident_ms,
                 copy_ms=copy_ms, profile_top=[(name[:80], ms) for name, ms in top])
@@ -1093,6 +1156,503 @@ def scst_split_and_profile(torch, model, scorer, params, state, card):
     return out
 
 
+# ---------------------------------------------------------------- 8. drivers
+
+DRIVER_IMAGES = {"train": 300, "val": 100, "test": 100}
+DRIVER_VOCAB, DRIVER_CAPS = 9487, 5
+DRIVER_FREE_GB = 25  # data set ~1.6 GB, up to three 5.4 GB triples at a time
+DRIVER_STEPS = 20  # steps or iterations before a run's boundary
+CAPTION_WORDS = ("a the man woman dog cat ball park street red blue green small large "
+                 "sitting standing running holding wearing riding table chair tree sky "
+                 "grass water food plate bike car sign window door hat shirt").split()
+
+
+def write_driver_dataset(root, model, seed=0):
+    """A data set at the flagship widths, in the files Dataset.from_files
+    and the packed feature stores read: cocotalk.json (9,487 words; 300 /
+    100 / 100 train / val / test images), npz labels (5 captions x 16
+    tokens per image, half their words from a caption lexicon), a top-words
+    pickle, and per registry encoder a packed/ store of original_fc.npy and
+    original_att.npy (seeded random f32). -> (argv of the data flags, GB)."""
+    import pickle
+
+    import numpy as np
+
+    from recurrent_fusion_network_torch import feat_registry
+
+    g = np.random.default_rng(seed)
+    words = CAPTION_WORDS + [f"w{i}" for i in range(len(CAPTION_WORDS), DRIVER_VOCAB)]
+    images, ids = [], []
+    for split, n in DRIVER_IMAGES.items():
+        for _ in range(n):
+            ids.append(100_000 + len(ids))
+            images.append({"id": ids[-1], "split": split, "file_path": f"{ids[-1]}.jpg"})
+    L = model.seq_length
+    labels = np.zeros((len(ids) * DRIVER_CAPS, L), np.int32)
+    for r in range(labels.shape[0]):
+        n = int(g.integers(8, L + 1))
+        lexicon = g.random(n) < 0.5
+        labels[r, :n] = np.where(lexicon, g.integers(1, len(CAPTION_WORDS) + 1, n),
+                                 g.integers(1, DRIVER_VOCAB + 1, n))
+    paths = {k: os.path.join(root, f) for k, f in (("input_json", "cocotalk.json"),
+                                                   ("input_label_h5", "cocotalk_label.npz"),
+                                                   ("top_words_path", "vocab_train.pkl"))}
+    with open(paths["input_json"], "w") as f:
+        json.dump({"ix_to_word": {str(i + 1): w for i, w in enumerate(words)},
+                   "images": images}, f)
+    np.savez(paths["input_label_h5"], labels=labels,
+             label_start_ix=np.arange(len(ids)) * DRIVER_CAPS + 1,
+             label_end_ix=np.arange(1, len(ids) + 1) * DRIVER_CAPS)
+    with open(paths["top_words_path"], "wb") as f:
+        pickle.dump({"words": words[:model.top_words_count]}, f)
+    data_root = os.path.join(root, "features")
+    n_bytes = 0
+    for info in feat_registry.feat_array_info(data_root):
+        store = os.path.join(data_root, info.name, "packed")
+        os.makedirs(store)
+        with open(os.path.join(store, "ids.json"), "w") as f:
+            json.dump(ids, f)
+        for kind, shape in (("fc", (info.fc_feat_size,)),
+                            ("att", (info.att_num, info.att_feat_size))):
+            arr = np.lib.format.open_memmap(os.path.join(store, f"original_{kind}.npy"),
+                                            mode="w+", dtype=np.float32,
+                                            shape=(len(ids),) + shape)
+            for lo in range(0, len(ids), 50):
+                arr[lo:lo + 50] = g.standard_normal((min(50, len(ids) - lo),) + shape,
+                                                    dtype=np.float32)
+            arr.flush()
+            n_bytes += arr.nbytes
+            del arr
+    argv = ["--feature_type", "feat_array", "--data_root", data_root]
+    for k, v in paths.items():
+        argv += [f"--{k}", v]
+    return argv, n_bytes / 1e9
+
+
+class DriverProbe:
+    """Wraps the loader a CLI builds: the time of every train-split fetch,
+    how long the host waited in it for the prefetch thread, and an event on
+    the compute stream just before it (in the overlapped loops, the end of
+    the step queued before the fetch), beside the index of the side-stream
+    copy the fetch is followed by. Timed copies (device events and the
+    host's time in the copy call) are switched on for the run."""
+
+    def __init__(self, torch):
+        from recurrent_fusion_network_torch.data import pinned
+
+        self.torch = torch
+        self.copier = pinned.copier(DEVICE)
+        self.copier.timing = True
+        self.copier.timings, self.copier.host_ms = [], []
+        self.waits = []  # ms the host waited in each train fetch
+        self.origin = torch.cuda.Event(enable_timing=True)
+        self.origin.record()
+        self.fetches = []  # (host time, compute-stream event, copy index)
+        self.boundaries = []  # host (start, end) of every eval and triple write
+
+    def wrap(self, build_loader):
+        def build(*a, **kw):
+            loader = build_loader(*a, **kw)
+            real = loader.get_batch
+
+            def get_batch(split, *args, **kwargs):
+                if split == "train":
+                    ev = self.torch.cuda.Event(enable_timing=True)
+                    ev.record()
+                    t0 = time.perf_counter()
+                    self.fetches.append((t0, ev, len(self.copier.timings)))
+                    out = real(split, *args, **kwargs)
+                    self.waits.append((time.perf_counter() - t0) * 1e3)
+                    return out
+                return real(split, *args, **kwargs)
+
+            loader.get_batch = get_batch
+            return loader
+
+        return build
+
+    def timed(self, fn):
+        """``fn`` with its host interval recorded as a boundary."""
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.boundaries.append((t0, time.perf_counter()))
+
+        return call
+
+    def summary(self, skip=2):
+        """Steady fetch-to-fetch ms: the median and quartiles of the gaps
+        past the first ``skip``, leaving out every gap a boundary (eval or
+        triple write) falls in; medians past the first fetch of the host's
+        wait for the loader, the side-stream copy's device ms and the host's
+        ms in the copy call (train batches); the mean share of each copy
+        that ran while the step queued before it still computed."""
+        self.torch.cuda.synchronize()
+        events, self.copier.timings = self.copier.timings, []
+        host_ms, self.copier.host_ms = self.copier.host_ms, []
+        self.copier.timing = False
+        gaps = [(b[0] - a[0]) * 1e3 for a, b in zip(self.fetches, self.fetches[1:])]
+        steady = [g for k, (g, a, b) in enumerate(zip(gaps, self.fetches, self.fetches[1:]))
+                  if k >= skip and not any(s < b[0] and e > a[0] for s, e in self.boundaries)]
+        if len(steady) < 2:
+            raise AssertionError(f"drivers: {len(steady)} steady gaps in {gaps}")
+        copies, hosts, shares = [], [], []
+        for k, (_, step_end, idx) in enumerate(self.fetches):
+            if idx >= len(events):
+                continue
+            c0, c1 = (self.origin.elapsed_time(e) for e in events[idx])
+            copies.append(c1 - c0)
+            hosts.append(host_ms[idx])
+            if k > 0 and c1 > c0:  # the first fetch has no step before it
+                end = self.origin.elapsed_time(step_end)
+                shares.append(max(0.0, min(c1, end) - c0) / (c1 - c0))
+        med = lambda xs: statistics.median(xs[1:] or xs) if xs else None  # noqa: E731
+        return dict(step_ms=statistics.median(steady),
+                    step_quartiles_ms=statistics.quantiles(steady, n=4)[::2],
+                    steady_gaps=len(steady), fetch_gaps_ms=gaps,
+                    loader_wait_ms=med(self.waits), copy_ms=med(copies),
+                    copy_host_ms=med(hosts),
+                    copy_overlap_share=statistics.mean(shares) if shares else None)
+
+
+class ShapeRecorder:
+    """Counts the attention kernels' launches by shape while phase 8's runs
+    go: inside ``run(name)`` both wrappers are wrapped (they launch nothing
+    of their own), and each call on the card is counted under its shape (dtype, G,
+    N, A, D, and for the backward whether it computes dvalues) and the
+    run's name. Every shape is then checked against the plain version."""
+
+    def __init__(self, aa):
+        self.aa = aa
+        self.fwd, self.bwd = {}, {}  # shape -> {run: launches}
+
+    def _count(self, table, shape, run):
+        runs = table.setdefault(shape, {})
+        runs[run] = runs.get(run, 0) + 1
+
+    @staticmethod
+    def _shape(q, keys, v, values, mask, dw=None):
+        if mask is not None or dw is not None or keys.shape[2] != HID:
+            raise AssertionError(
+                f"drivers: an attention call with a mask, an incoming grad of w or H = "
+                f"{keys.shape[2]}, which the checks do not cover")
+        G = v.shape[0]
+        return (str(q.dtype).replace("torch.", ""), G, keys.shape[0] // G, keys.shape[1],
+                values.shape[2])
+
+    def totals(self, run):
+        return (sum(r.get(run, 0) for r in self.fwd.values()),
+                sum(r.get(run, 0) for r in self.bwd.values()))
+
+    @contextlib.contextmanager
+    def run(self, name):
+        from unittest import mock
+
+        aa = self.aa
+        real_fwd, real_bwd = aa.additive_attention_fwd, aa.additive_attention_bwd
+
+        def fwd(q, keys, v, bv, values, mask=None):
+            out = real_fwd(q, keys, v, bv, values, mask)
+            if q.device.type == DEVICE:
+                self._count(self.fwd, self._shape(q, keys, v, values, mask), name)
+            return out
+
+        def bwd(dz, dw, q, keys, v, values, w, mask=None, *, need_dvalues=True):
+            out = real_bwd(dz, dw, q, keys, v, values, w, mask, need_dvalues=need_dvalues)
+            if q.device.type == DEVICE:
+                shape = self._shape(q, keys, v, values, mask, dw) + (need_dvalues,)
+                self._count(self.bwd, shape, name)
+            return out
+
+        with mock.patch.object(aa, "additive_attention_fwd", fwd), \
+                mock.patch.object(aa, "additive_attention_bwd", bwd):
+            yield
+
+
+def check_driver_sites(torch, aa, recorder):
+    """Both kernels against their plain versions at every shape phase 8's
+    runs gave them, each in its own dtype, at the tolerances of phases 3
+    and 6 with a bitwise repeat; each row's launches per run and in all
+    ("drivers")."""
+    fwd_rows, bwd_rows = [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        fwd = [(f"drivers_G{G}_N{N}_A{A}_D{D}", G, N, A, D,
+                dict(runs, drivers=sum(runs.values())))
+               for (dt, G, N, A, D), runs in sorted(recorder.fwd.items()) if dt == dname]
+        bwd = [(f"drivers_G{G}_N{N}_A{A}_D{D}", G, N, A, D, need,
+                dict(runs, drivers=sum(runs.values())))
+               for (dt, G, N, A, D, need), runs in sorted(recorder.bwd.items()) if dt == dname]
+        if fwd:
+            fwd_rows += check_attention_kernel(torch, aa, fwd, (dtype,))
+        if bwd:
+            bwd_rows += check_attention_backward(torch, aa, bwd, (dtype,))
+    return fwd_rows, bwd_rows
+
+
+def reset_counters(counters):
+    for c in counters:
+        c.launches = c.bwd_launches = c.scalar_launches = 0  # main path starts here
+
+
+def read_counters(counters, what):
+    launches = (sum(c.launches for c in counters), sum(c.bwd_launches for c in counters))
+    scalar = sum(c.scalar_launches for c in counters)
+    if scalar:
+        raise AssertionError(f"{what} took the kernels' scalar path {scalar} times")
+    return launches
+
+
+def check_stats(stats, what):
+    names = ("Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "METEOR", "ROUGE_L", "CIDEr", "SPICE")
+    bad = [k for k in names if not (stats and k in stats and math.isfinite(stats[k]))]
+    if bad:
+        raise AssertionError(f"{what}: metrics {bad} missing or not finite in {stats}")
+    return {k: stats[k] for k in names}
+
+
+def triple_files(run_id, prefix="", best=True):
+    """The file names the JAX package's tags give one run's triples."""
+    return sorted(f"{prefix}{kind}_{run_id}_0{tag}.pkl" for kind in
+                  ("model", "optimizer", "infos") for tag in ([""] + (["-best"] if best else [])))
+
+
+def remove_files(ck, names):
+    for name in names:
+        os.remove(os.path.join(ck, name))
+
+
+def run_driver(torch, cli, argv, counters, expect, what, recorder, run):
+    """One CLI run under the probe and the shape recorder (as ``run``) with
+    the launch counters reset just before and read just after; the metric
+    time (language_eval) and the JSONL events of the run beside it."""
+    from unittest import mock
+
+    from recurrent_fusion_network_torch.training import eval_split
+    from recurrent_fusion_network_torch.training.train_loop import Boundaries
+
+    metric_s = []
+    real_lang = eval_split.language_eval
+
+    def timed_lang(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real_lang(*a, **kw)
+        finally:
+            metric_s.append(time.perf_counter() - t0)
+
+    probe = DriverProbe(torch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters(counters)
+    t0 = time.perf_counter()
+    with mock.patch.object(cli, "build_loader", probe.wrap(cli.build_loader)), \
+            mock.patch.object(eval_split, "language_eval", timed_lang), \
+            mock.patch.object(Boundaries, "evaluate", probe.timed(Boundaries.evaluate)), \
+            mock.patch.object(Boundaries, "save", probe.timed(Boundaries.save)), \
+            recorder.run(run):
+        out = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters(counters, what)
+    if launches != expect or recorder.totals(run) != expect:
+        raise AssertionError(f"{what}: launches (fwd, bwd) {launches}, by shape "
+                             f"{recorder.totals(run)}, expected {expect}")
+    return out, dict(probe.summary(), wall_s=wall, metric_s=metric_s, launches=launches,
+                     peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def jsonl(path, event):
+    with open(path) as f:
+        return [e for e in map(json.loads, f) if e["event"] == event]
+
+
+def drivers(torch, model, card, counters, recorder):
+    """Phase 8: the three CLIs on a flagship-width data set written to disk:
+    XE (bf16, 100 images x 5 captions, 21 steps, a boundary at iteration 20
+    with beam-3 eval, the metrics and the triples), eval of the best triple
+    on the test split, then SCST (f32, 51 images x 5) warm-started from it,
+    21 iterations with a boundary at 40, under --rl_overlap 1 and 0. Launch
+    counts per path asserted, every launch's shape recorded, metrics
+    finite, triples named as the JAX package names them."""
+    import shutil
+    import tempfile
+
+    from recurrent_fusion_network_torch import eval as eval_cli
+    from recurrent_fusion_network_torch import main as main_cli
+    from recurrent_fusion_network_torch import main_rl as main_rl_cli
+
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    free_gb = shutil.disk_usage(build).free / 1e9
+    if free_gb < DRIVER_FREE_GB:
+        raise AssertionError(f"drivers: {free_gb:.1f} GB free under {build}, "
+                             f"{DRIVER_FREE_GB} GB needed")
+    root = tempfile.mkdtemp(prefix="drivers_", dir=build)
+    try:
+        return _drivers(torch, model, card, counters, recorder, root, eval_cli, main_cli,
+                        main_rl_cli, free_gb)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def time_picklers(ck, run_id):
+    """The best triple's optimizer file (the f32 Adam moments) written again
+    with the checkpoint writer's pickler (the pure-Python one, which writes
+    the optax class paths by name) and with the C pickler (the same objects
+    under the port's class names), in the order Python, C, C, Python:
+    -> ({pickler: [s, s]}, GB per file). Page-cache writes, as the
+    checkpoint writer's."""
+    import pickle
+
+    from recurrent_fusion_network_torch.training import checkpoint
+
+    state = checkpoint.load_optimizer(ck, run_id, 0, best=True)
+    path = os.path.join(ck, "pickler_probe.pkl")
+    times = {"python": [], "c": []}
+    for name in ("python", "c", "c", "python"):
+        pickler = checkpoint._JaxNamePickler if name == "python" else pickle.Pickler
+        t0 = time.perf_counter()
+        with open(path, "wb") as f:
+            pickler(f, protocol=4).dump(state)
+        times[name].append(time.perf_counter() - t0)
+        size = os.path.getsize(path)
+        os.remove(path)
+    return times, size / 1e9
+
+
+def _drivers(torch, model, card, counters, recorder, root, eval_cli, main_cli, main_rl_cli,
+             free_gb):
+    from recurrent_fusion_network_torch.training.checkpoint import load_checkpoint
+
+    t0 = time.perf_counter()
+    data_argv, data_gb = write_driver_dataset(root, model)
+    log(f"drivers: data set of {data_gb:.2f} GB of features (300 / 100 / 100 images, "
+        f"{DRIVER_VOCAB} words) written in {time.perf_counter() - t0:.2f} s; "
+        f"{free_gb:.1f} GB were free")
+    ck = os.path.join(root, "checkpoint")
+    common = data_argv + ["--device", DEVICE, "--checkpoint_path", ck, "--eval_results_dir",
+                          os.path.join(root, "eval_results"), "--val_images_use", "100",
+                          "--beam_size", "3", "--language_eval", "1", "--seed", "0",
+                          "--losses_log_every", "5"]
+    out = {}
+
+    # XE: steps 0..20, the boundary at 20 (one eval batch of 100 images)
+    log_xe = os.path.join(root, "xe.jsonl")
+    xe_steps, every, per_eval = DRIVER_STEPS + 1, DRIVER_STEPS, 65 + 64
+    infos, xe = run_driver(
+        torch, main_cli, common + ["--dtype", "bfloat16", "--batch_size", "100",
+                                   "--seq_per_img", "5", "--save_checkpoint_every", str(every),
+                                   "--max_iterations", str(xe_steps), "--id", "xe",
+                                   "--json_log", log_xe],
+        counters, (65 * xe_steps + per_eval, 65 * xe_steps), "drivers XE", recorder, "xe")
+    [val] = jsonl(log_xe, "val")
+    stats = check_stats(val, "drivers XE eval")
+    if sorted(os.listdir(ck)) != triple_files("xe"):
+        raise AssertionError(f"drivers XE files {sorted(os.listdir(ck))}")
+    _, saved = load_checkpoint(ck, "xe", 0, best=True)
+    if saved["iter"] != xe_steps or saved["opt"]["tied_att_keys"] != 1 or "rng_key" in saved:
+        raise AssertionError(f"drivers XE best infos: iter {saved['iter']}, tied "
+                             f"{saved['opt']['tied_att_keys']}, keys {sorted(saved)}")
+    del infos["final_params"], infos["final_opt_state"], saved
+    remove_files(ck, [f for f in triple_files("xe") if "-best" not in f])
+    xe.update(eval_s=val["seconds"], metric_s=xe["metric_s"][0],
+              decode_s=val["seconds"] - xe["metric_s"][0], triples_write_s=val["save_seconds"],
+              stats=stats, losses=infos["loss_history"])
+    log(f"drivers XE bf16 B=100x5: steady step {xe['step_ms']:.2f} ms, quartiles "
+        f"{[round(q, 2) for q in xe['step_quartiles_ms']]} (fetch to fetch over "
+        f"{xe['steady_gaps']} gaps past the first two and clear of the boundary: "
+        f"{[round(g, 2) for g in xe['fetch_gaps_ms']]}); host "
+        f"waited {xe['loader_wait_ms']:.2f} ms per fetch for the loader; batch copy on the "
+        f"side stream {xe['copy_ms']:.2f} ms on the device, {xe['copy_host_ms']:.2f} ms of "
+        f"host time to queue it, share of it under the step queued before "
+        f"{xe['copy_overlap_share']:.3f}; boundary eval {xe['eval_s'] * 1e3:.1f} ms (decode "
+        f"and loss {xe['decode_s'] * 1e3:.1f} ms, metrics {xe['metric_s'] * 1e3:.1f} ms), "
+        f"two triples written in {xe['triples_write_s'] * 1e3:.1f} ms; metrics {stats}; "
+        f"launches (fwd, bwd) {xe['launches']}; wall {xe['wall_s']:.2f} s; peak memory "
+        f"{xe['peak_gb']:.2f} GB on {card}")
+    out["xe"] = xe
+
+    times, gb = time_picklers(ck, "xe")
+    out["optimizer_write"] = dict(gb=gb, **{f"{k}_s": v for k, v in times.items()})
+    log(f"drivers: the best optimizer file ({gb:.2f} GB) written with the checkpoint "
+        f"writer's pure-Python pickler {[round(t, 3) for t in times['python']]} s, with the "
+        f"C pickler {[round(t, 3) for t in times['c']]} s (order Python, C, C, Python) on "
+        f"{card}")
+
+    # eval of the XE best triple on the test split
+    reset_counters(counters)
+    t0 = time.perf_counter()
+    with recorder.run("eval"):
+        loss, preds, stats = eval_cli.main(
+            ["--model_path", ck, "--load_model_id", "xe", "--eval_split", "test",
+             "--val_images_use", "100", "--beam_size", "3", "--batch_size", "100",
+             "--dtype", "bfloat16", "--eval_results_dir", os.path.join(root, "eval_results"),
+             "--device", DEVICE] + data_argv)
+    torch.cuda.synchronize()
+    ev_wall = time.perf_counter() - t0
+    launches = read_counters(counters, "drivers eval")
+    if launches != (per_eval, 0) or recorder.totals("eval") != launches \
+            or len(preds) != 100 or not math.isfinite(loss):
+        raise AssertionError(f"drivers eval: launches {launches}, by shape "
+                             f"{recorder.totals('eval')}, {len(preds)} predictions, loss {loss}")
+    out["eval"] = dict(wall_s=ev_wall, loss=loss, stats=check_stats(stats, "drivers eval"),
+                       launches=launches)
+    log(f"drivers eval (test, 100 images, beam 3, bf16): loss {loss:.4f}, metrics "
+        f"{out['eval']['stats']}; {ev_wall:.2f} s including the checkpoint read; launches "
+        f"{launches} on {card}")
+
+    # SCST from the XE best triple (iteration 21 on): 21 iterations, the
+    # boundary at 40 (two eval batches of 51 images)
+    rl_iters, rl_evals = DRIVER_STEPS + 1, 2
+    for overlap in (1, 0):
+        run_id, log_rl = f"rl{overlap}", os.path.join(root, f"rl{overlap}.jsonl")
+        infos, rl = run_driver(
+            torch, main_rl_cli,
+            common + ["--batch_size", "51", "--seq_per_img", "5", "--dtype", "float32",
+                      "--start_from", ck, "--load_model_id", "xe", "--id", run_id,
+                      "--save_checkpoint_every", str(every),
+                      "--max_iterations", str(xe_steps + rl_iters),
+                      "--rl_overlap", str(overlap), "--json_log", log_rl,
+                      "--cider_df", os.path.join(root, "absent.p")],
+            counters, (130 * rl_iters + per_eval * rl_evals, 65 * rl_iters),
+            f"drivers SCST rl_overlap={overlap}", recorder, f"scst_overlap_{overlap}")
+        [val] = jsonl(log_rl, "rl_val")
+        stats = check_stats(val, "drivers SCST eval")
+        rewards = [e["avg_reward"] for e in jsonl(log_rl, "rl_train")]
+        files = sorted(f for f in os.listdir(ck) if f.startswith("rl_"))
+        if files not in (triple_files(run_id, "rl_"), triple_files(run_id, "rl_", False)):
+            raise AssertionError(f"drivers SCST files {files}")
+        remove_files(ck, files)
+        if not all(map(math.isfinite, rewards)) or infos["iter"] != xe_steps + rl_iters:
+            raise AssertionError(f"drivers SCST: iter {infos['iter']}, rewards {rewards}")
+        del infos
+        rl.update(eval_s=val["seconds"], triples_write_s=val["save_seconds"], stats=stats,
+                  rewards=rewards, files=files)
+        log(f"drivers SCST f32 B=51x5 rl_overlap={overlap}: steady iteration "
+            f"{rl['step_ms']:.2f} ms, quartiles {[round(q, 2) for q in rl['step_quartiles_ms']]} "
+            f"(fetch to fetch over {rl['steady_gaps']} gaps past the first two and clear of "
+            f"the boundary: {[round(g, 2) for g in rl['fetch_gaps_ms']]}); loader wait "
+            f"{rl['loader_wait_ms']:.2f} ms; batch copy on the side stream {rl['copy_ms']:.2f} "
+            f"ms on the device, {rl['copy_host_ms']:.2f} ms of host time, share under the "
+            f"step queued before {rl['copy_overlap_share']:.3f}; boundary eval "
+            f"{rl['eval_s'] * 1e3:.1f} ms "
+            f"(metrics {rl['metric_s'][0] * 1e3:.1f} ms), {len(files) // 3} triple(s) in "
+            f"{rl['triples_write_s'] * 1e3:.1f} ms; rewards {rewards}; metrics {stats}; "
+            f"launches {rl['launches']}; wall {rl['wall_s']:.2f} s; peak memory "
+            f"{rl['peak_gb']:.2f} GB on {card}")
+        out[f"scst_overlap_{overlap}"] = rl
+    remove_files(ck, os.listdir(ck))  # the XE best triple
+    on, off = out["scst_overlap_1"], out["scst_overlap_0"]
+    log(f"drivers: SCST iteration rl_overlap=1 {on['step_ms']:.2f} ms (quartiles "
+        f"{[round(q, 2) for q in on['step_quartiles_ms']]}), rl_overlap=0 "
+        f"{off['step_ms']:.2f} ms (quartiles {[round(q, 2) for q in off['step_quartiles_ms']]}) "
+        f"on {card}")
+    return out
+
+
 def path_sums(site_rows, path):
     """ms, plain_ms and bound_ms summed over the launches of one path (one
     beam-3 batch, one train step or one SCST iteration), and bound / ms of
@@ -1193,17 +1753,37 @@ def main():
         f"serial iterations) on {card}")
     scst_launches = {k: scst_on["launches"][k] + scst_off["launches"][k]
                      for k in scst_on["launches"]}
+    torch.cuda.empty_cache()
+
+    # ---- 8. drivers
+    t0 = time.perf_counter()
+    recorder = ShapeRecorder(aa)
+    driven = drivers(torch, model, card, [aa], recorder)
+    torch.cuda.empty_cache()
+    log(f"drivers: phase 8's runs in {time.perf_counter() - t0:.2f} s; attention shapes "
+        f"met: {len(recorder.fwd)} forward, {len(recorder.bwd)} backward")
+    driver_runs = [driven["xe"], driven["scst_overlap_1"], driven["scst_overlap_0"]]
+    driver_fwd = sum(r["launches"][0] for r in driver_runs) + driven["eval"]["launches"][0]
+    driver_bwd = sum(r["launches"][1] for r in driver_runs)
+    drv_rows, drv_bwd_rows = check_driver_sites(torch, aa, recorder)
+    log(f"drivers: phase 8 in {time.perf_counter() - t0:.2f} s with its site checks")
 
     bf16 = [r for r in rows if r["dtype"] == "bfloat16"]
     bwd16 = [r for r in bwd_rows if r["dtype"] == "bfloat16"]
     serve, train_fwd = path_sums(bf16, "serve"), path_sums(bf16, "train")
     train_bwd = path_sums(bwd16, "train")
     scst_fwd, scst_bwd = path_sums(scst_rows, "scst"), path_sums(scst_bwd_rows, "scst")
+    eval_fwd = path_sums(drv_rows, "eval")
+    drivers_fwd, drivers_bwd = path_sums(drv_rows, "drivers"), path_sums(drv_bwd_rows, "drivers")
     for sums, dtype in ((serve, "bfloat16"), (train_fwd, "bfloat16"),
                         (train_bwd, "bfloat16"), (scst_fwd, "float32"),
-                        (scst_bwd, "float32")):
+                        (scst_bwd, "float32"), (eval_fwd, "bfloat16"),
+                        (drivers_fwd, "bfloat16+float32"), (drivers_bwd, "bfloat16+float32")):
         sums["dtype"] = dtype
-    rows, bwd_rows = rows + scst_rows, bwd_rows + scst_bwd_rows
+    if (eval_fwd["launches"], drivers_fwd["launches"], drivers_bwd["launches"]) != (
+            driven["eval"]["launches"][0], driver_fwd, driver_bwd):
+        raise AssertionError("drivers: the checked sites do not add up to phase 8's launches")
+    rows, bwd_rows = rows + scst_rows + drv_rows, bwd_rows + scst_bwd_rows + drv_bwd_rows
     kernels = [{
         "name": "additive_attention_fwd",
         "route": "cuda",
@@ -1211,10 +1791,14 @@ def main():
         "replaces": "recurrent_fusion_network_tpu/ops/attention.py:46",
         "launches": launches["additive_attention"]
         + trained["launches"]["additive_attention_fwd"]
-        + scst_launches["additive_attention_fwd"],
+        + scst_launches["additive_attention_fwd"] + driver_fwd,
+        # "eval": the eval CLI's run (one batch of 100 test images);
+        # "drivers": all of phase 8's CLI runs, their eval batches included
         "launches_by_path": {"serve": launches["additive_attention"],
                              "train": trained["launches"]["additive_attention_fwd"],
-                             "scst": scst_launches["additive_attention_fwd"]},
+                             "scst": scst_launches["additive_attention_fwd"],
+                             "eval": driven["eval"]["launches"][0],
+                             "drivers": driver_fwd},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         # per beam-3 bf16 batch at B = 512: the sum over its 64 launches
         "ms": serve["ms"],
@@ -1222,9 +1806,12 @@ def main():
         "bound_ms": serve["bound_ms"],
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in bf16) else "operations",
         "library_ms": None,  # no single PyTorch call computes additive attention
-        # the same sums per bf16 train step at B = 512 (65 launches) and per
-        # f32 SCST iteration at B = 256 (130 launches) beside them
-        "by_path": {"serve": serve, "train": train_fwd, "scst": scst_fwd},
+        # the same sums per bf16 train step at B = 512 (65 launches), per
+        # f32 SCST iteration at B = 256 (130 launches), per bf16 eval batch
+        # of 100 images (the eval CLI's run) and over all of phase 8's
+        # launches at the shapes they had
+        "by_path": {"serve": serve, "train": train_fwd, "scst": scst_fwd, "eval": eval_fwd,
+                    "drivers": drivers_fwd},
         "ok": all(r["ok"] and r["bitwise_repeat"] for r in rows),
         "sites": rows,
     }, {
@@ -1234,9 +1821,10 @@ def main():
         # the gradient of attend under jax.value_and_grad in make_train_step
         "replaces": "recurrent_fusion_network_tpu/ops/attention.py:46",
         "launches": trained["launches"]["additive_attention_bwd"]
-        + scst_launches["additive_attention_bwd"],
+        + scst_launches["additive_attention_bwd"] + driver_bwd,
         "launches_by_path": {"train": trained["launches"]["additive_attention_bwd"],
-                             "scst": scst_launches["additive_attention_bwd"]},
+                             "scst": scst_launches["additive_attention_bwd"],
+                             "drivers": driver_bwd},
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
         # errors relative to the largest plain value of each output
         "max_rel_err": max(r["max_rel_err"] for r in bwd_rows),
@@ -1244,7 +1832,7 @@ def main():
         "ms": train_bwd["ms"],
         "plain_ms": train_bwd["plain_ms"],
         "bound_ms": train_bwd["bound_ms"],
-        "by_path": {"train": train_bwd, "scst": scst_bwd},
+        "by_path": {"train": train_bwd, "scst": scst_bwd, "drivers": drivers_bwd},
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in bwd16) else "operations",
         "library_ms": None,  # no single PyTorch call computes its gradient
         "ok": all(r["ok"] and r["bitwise_repeat"] for r in bwd_rows),
@@ -1254,6 +1842,7 @@ def main():
     log("scst summary: " + json.dumps({**rl_check, "overlap_on": scst_on,
                                         "overlap_off": scst_off, **split,
                                         "peak_gb": peak_gb}))
+    log("drivers summary: " + json.dumps(driven))
     for k in kernels:
         for path, sums in k["by_path"].items():
             log(f"kernel {k['name']} per {sums['dtype']} {path} path ({sums['launches']} "

@@ -1,12 +1,16 @@
-"""Options of the port's serving and training entry points.
+"""Options of the port's entry points.
 
-The port's own copy of the parts of ``recurrent_fusion_network_tpu/
-config.py`` and ``eval.py::merge_checkpoint_opt`` that serving and the XE
-train step read: the flag names and defaults of the model options, the
-serving options of the root ``serve.py`` (the serve CLI's flags), the XE
-and SCST training options with the JAX package's defaults (``Options``
-only: the training CLIs are not ported yet), and the checkpoint merge (the CLI wins for
-runtime knobs, the checkpoint's saved opt for the architecture).
+The port's own copy of ``recurrent_fusion_network_tpu/config.py`` and of
+``eval.py``'s ``CLI_WINS`` / ``merge_checkpoint_opt``: the flag names and
+defaults of the model, training, data, eval, checkpoint, logging and
+preemption options, the feature wiring from the encoder registry, the
+post-parse checks, and the checkpoint merge (the CLI wins for runtime knobs,
+the checkpoint's saved opt for the architecture). ``parse_opt`` parses the
+training and eval CLIs (``main``, ``main_rl``, ``eval``); the serve CLI keeps
+its own, smaller parser (``parse_serve_opt``).
+
+Flags of features the port does not have yet raise ``NotImplementedError``
+with their ROADMAP entry (``check_ported``).
 """
 
 from __future__ import annotations
@@ -15,11 +19,13 @@ import argparse
 from types import SimpleNamespace
 from typing import Optional, Sequence
 
+from . import feat_registry
+
 
 def _defaults() -> dict:
     return dict(
-        # model options (the JAX package's defaults; a checkpoint's saved
-        # opt overrides them)
+        # model options (the JAX package's defaults, but the port builds the
+        # RFNet model only; a checkpoint's saved opt overrides them)
         caption_model="recurrent_fusion_model",
         rnn_size=512,
         input_encoding_size=512,
@@ -110,37 +116,224 @@ def _train_defaults() -> dict:
     )
 
 
-CHOICES = {"serve_dtype": ("bfloat16", "float32")}
+def _driver_defaults() -> dict:
+    """Data, eval, checkpoint, logging and preemption options of the
+    training and eval CLIs, the JAX package's flag names and defaults (its
+    flags without a port counterpart are kept, so a checkpoint's saved opt
+    and a JAX command line read the same)."""
+    return dict(
+        # data input
+        input_json="data/cocotalk.json",
+        input_label_h5="data/cocotalk_label.h5",
+        top_words_path="data/vocab_train.pkl",
+        feature_type="inception_v3",
+        official_train_id_file="data/official_split/official_train_id.txt",
+        official_val_id_file="data/official_split/official_val_id.txt",
+        official_test_id_file="data/official_split/official_test_id.txt",
+        use_official_split=0,
+        use_flip=0,
+        use_crop=0,
+        aug_type=0,
+        use_mos=0,
+        num_expert=10,
+        num_layers=1,
+        rnn_type="lstm",
+        max_iterations=-1,  # hard iteration cap (-1 = off)
+        batch_size=10,
+        drop_prob_obj_att=0.0,
+        drop_prob_connect=0.0,
+        seq_per_img=5,
+        optim_rmsprop_alpha=0.99,
+        optim_lr_decay=0.0,
+        optim_rho=0.9,
+        # evaluation
+        val_images_use=5000,
+        language_eval=1,
+        train_only=0,
+        verbose=0,
+        online_training=0,
+        use_cuda=0,
+        async_opt=0,
+        num_processes=4,
+        spice_backend="approx",
+        num_head=8,
+        drop_prob_self_attn=0.1,
+        guiding_weight=1.0,
+        guiding_l1_penality=0.001,
+        review_net_same_rnn=0,
+        eval_split="test",
+        eval_flip_ensemble=0,
+        image_folder="",
+        image_root="",
+        infos_path="",
+        sample_max=1,
+        print_beam_candidate=0,
+        print_top_words=0,
+        eval_ensemble_multi_gpu=0,
+        eval_num_models_per_gpu=4,
+        ip="localhost",
+        synthetic_features=0,
+        backbone_weights="",
+        backbone_arch="resnet101",
+        json_log="",  # JSONL event log path (utils/logging.py)
+        eval_results_dir="eval_results",  # per-image metric JSONs of eval_split
+        data_root="data/features",
+        num_dp_devices=1,
+        num_mp_devices=1,
+        n_seeds=1,
+        checkpoint_backend="pickle",
+        checkpoint_async=0,
+        graceful_preempt=1,  # SIGTERM -> checkpoint at the next boundary
+        profile_dir="",
+        profile_start=5,
+        profile_steps=0,
+    )
 
-# flags the CLI keeps even when the checkpoint's saved opt has them
-# (eval.py CLI_WINS, as far as serving reads them)
-CLI_WINS = {"beam_size", "model_path", "load_model_id", "rl_prefix", "rank",
-            "host", "port", "serve_batch_size", "serve_depth", "drain_timeout",
-            "serve_dtype", "device", "checkpoint_path"}
+
+CHOICES = {"serve_dtype": ("bfloat16", "float32"), "dtype": ("float32", "bfloat16")}
+_RUNTIME = ("vocab_size", "seq_length", "current_lr", "ss_prob")
+
+# flags the eval CLI (and the serve CLI) keep even when the checkpoint's
+# saved opt has them (JAX eval.py CLI_WINS, plus the port's device and the
+# serving flags)
+CLI_WINS = {
+    "beam_size", "eval_split", "val_images_use", "language_eval", "sample_max",
+    "batch_size", "seq_per_img", "input_json", "input_label_h5",
+    "top_words_path", "data_root", "synthetic_features", "verbose", "id",
+    "model_path", "infos_path", "load_model_id", "eval_flip_ensemble",
+    "print_beam_candidate", "print_top_words", "seed",
+    "spice_backend", "ip", "port",
+    "dtype", "profile_dir", "profile_steps", "checkpoint_async",
+    "image_folder", "image_root", "backbone_weights", "backbone_arch",
+    "device", "rl_prefix", "rank", "host", "serve_batch_size", "serve_depth",
+    "drain_timeout", "serve_dtype", "eval_results_dir",
+}
 
 
 class Options(SimpleNamespace):
     """Mutable option namespace with the JAX package's attribute names."""
 
     def __init__(self, **overrides):
-        super().__init__(**_defaults(), **_train_defaults())
+        super().__init__(**_defaults(), **_train_defaults(), **_driver_defaults())
         for k, v in overrides.items():
             setattr(self, k, v)
 
 
-def parse_opt(argv: Optional[Sequence[str]] = None) -> Options:
+def _add_flags(parser, defaults: dict) -> None:
+    for key, value in defaults.items():
+        if key in _RUNTIME:
+            continue
+        kind = str if value is None else type(value)
+        parser.add_argument(f"--{key}", type=kind, default=value, choices=CHOICES.get(key))
+
+
+def parse_serve_opt(argv: Optional[Sequence[str]] = None) -> Options:
+    """The serve CLI's flags: the model, checkpoint and serving options."""
     parser = argparse.ArgumentParser(description="RFNet caption serving (PyTorch)")
-    for key, value in _defaults().items():
-        parser.add_argument(f"--{key}", type=type(value), default=value,
-                            choices=CHOICES.get(key))
+    _add_flags(parser, _defaults())
     return Options(**vars(parser.parse_args(argv)))
 
 
+def parse_opt(argv: Optional[Sequence[str]] = None) -> Options:
+    """The training and eval CLIs' flags (JAX config.parse_opt)."""
+    parser = argparse.ArgumentParser(description="RFNet captioning options (PyTorch)")
+    _add_flags(parser, {**_defaults(), **_train_defaults(), **_driver_defaults()})
+    opt = Options(**vars(parser.parse_args(argv)))
+    finalize_options(opt)
+    return opt
+
+
+def validate_options(opt) -> None:
+    """Post-parse checks (the reference's opts.py)."""
+    assert opt.rnn_size > 0, "rnn_size should be greater than 0"
+    assert opt.num_layers > 0, "num_layers should be greater than 0"
+    assert opt.input_encoding_size > 0, "input_encoding_size should be greater than 0"
+    assert opt.batch_size > 0, "batch_size should be greater than 0"
+    assert 0 <= opt.drop_prob_lm <= 1, "drop_prob_lm should be between 0 and 1"
+    assert opt.seq_per_img > 0, "seq_per_img should be greater than 0"
+    assert opt.beam_size > 0, "beam_size should be greater than 0"
+    assert opt.save_checkpoint_every > 0, "save_checkpoint_every should be greater than 0"
+    assert opt.losses_log_every > 0, "losses_log_every should be greater than 0"
+    assert opt.language_eval in (0, 1), "language_eval should be 0 or 1"
+    assert opt.remat_policy in ("save_ctx", "full"), \
+        "remat_policy should be 'save_ctx' or 'full'"
+    assert opt.load_best_score in (0, 1), "load_best_score should be 0 or 1"
+    assert opt.train_only in (0, 1), "train_only should be 0 or 1"
+
+
+# flag -> (is it set?, what is missing, ROADMAP entry)
+_UNPORTED = (
+    ("checkpoint_backend", lambda v: v == "orbax", "orbax checkpointing", "M11"),
+    ("profile_steps", lambda v: v > 0, "the TraceWindow profiler", "M11"),
+    ("n_seeds", lambda v: v > 1, "the multi-seed fleet", "M9"),
+    ("num_dp_devices", lambda v: v > 1, "the data-parallel mesh", "M10"),
+    ("num_mp_devices", lambda v: v > 1, "the dp x mp mesh", "M10"),
+    ("async_opt", lambda v: bool(v), "the --async_opt data-parallel mapping", "M10"),
+    ("image_folder", lambda v: bool(v), "raw-image eval (eval_folder)", "M12"),
+)
+
+
+def check_ported(opt) -> None:
+    """Raise NotImplementedError for a flag whose feature is not ported."""
+    for key, is_set, what, entry in _UNPORTED:
+        value = getattr(opt, key, None)
+        if value is not None and is_set(value):
+            raise NotImplementedError(
+                f"--{key} {value}: {what} is not ported yet (ROADMAP.md queue 1, {entry})")
+
+
+def _wire_features(opt) -> None:
+    """Feature-path expansion from the registry (JAX config._wire_features)."""
+    if getattr(opt, "feat_array_info", None):
+        return  # an explicit encoder list (tests / synthetic data)
+    if opt.feature_type == "synthetic":
+        # files-free smoke runs: small fabricated encoder dims (one encoder,
+        # or M = 3 heterogeneous ones for the fusion model)
+        if opt.caption_model == "recurrent_fusion_model":
+            opt.feat_array_info = [
+                {"fc_feat_size": 64, "att_feat_size": 48, "att_num": 8},
+                {"fc_feat_size": 48, "att_feat_size": 32, "att_num": 6},
+                {"fc_feat_size": 56, "att_feat_size": 40, "att_num": 7},
+            ]
+        else:
+            opt.feat_array_info = [{"fc_feat_size": 64, "att_feat_size": 48, "att_num": 8}]
+        return
+    if opt.feature_type == "feat_array":
+        opt.feat_array_info = feat_registry.feat_array_info(opt.data_root)
+        return
+    info = feat_registry.encoder_info(opt.feature_type, opt.data_root)
+    opt.feat_array_info = [info]
+    opt.input_fc_dir = info["original"]["fc"]
+    opt.input_att_dir = info["original"]["att"]
+    for variant in feat_registry.VARIANTS:
+        dirs = info.variant_dirs(variant)
+        suffix = "" if variant == "original" else "_" + variant
+        ref_suffix = suffix.replace("_crop_tr", "_crop")  # the reference's flag names
+        setattr(opt, f"input_fc{ref_suffix}_dir", dirs["fc"])
+        setattr(opt, f"input_att{ref_suffix}_dir", dirs["att"])
+    opt.fc_feat_size = info.fc_feat_size
+    opt.att_feat_size = info.att_feat_size
+    opt.att_num = info.att_num
+
+
+def finalize_options(opt) -> None:
+    validate_options(opt)
+    check_ported(opt)
+    _wire_features(opt)
+    if not hasattr(opt, "feat_array_info"):
+        opt.feat_array_info = []
+    if getattr(opt, "tied_att_keys", 0) == -1:  # auto follows the profile
+        opt.tied_att_keys = 0 if getattr(opt, "reference_parity", 0) else 1
+
+
 def merge_checkpoint_opt(opt, saved: dict):
-    """Adopt a checkpoint's saved opt (eval.py::merge_checkpoint_opt)."""
+    """Adopt a checkpoint's saved opt (JAX eval.py::merge_checkpoint_opt):
+    every key but the CLI's own (``CLI_WINS``) and the run-time ones; the
+    features re-wired under the CLI's ``data_root`` when the checkpoint
+    holds registry entries, copied when it holds plain dicts."""
     for k, v in saved.items():
         if k in CLI_WINS or k in ("vocab_size", "seq_length", "start_from",
-                                  "current_lr"):
+                                  "checkpoint_path", "current_lr", "feat_array_info"):
             continue
         setattr(opt, k, v)
     # checkpoints from before these flags existed hold the reference
@@ -149,4 +342,10 @@ def merge_checkpoint_opt(opt, saved: dict):
         opt.tied_att_keys = 0
     if "low_rank_ctx" not in saved:
         opt.low_rank_ctx = 0
+    saved_fai = saved.get("feat_array_info")
+    if saved_fai and all(isinstance(f, dict) for f in saved_fai):
+        opt.feat_array_info = saved_fai
+    elif saved_fai:
+        opt.feat_array_info = None
+        _wire_features(opt)
     return opt

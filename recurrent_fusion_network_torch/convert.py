@@ -16,7 +16,8 @@ with one entry per transform: ``EmptyState()`` for the clamp and the weight
 decay, then ``ScaleByAdamState(count, mu, nu)`` for adam or, for sgd with
 momentum, ``TraceState(trace)``. The checkpoint reader rebuilds those
 classes as the ``Jax*State`` named tuples below, and ``opt_state_from_jax``
-maps the chain to the port's ``AdamState`` / ``SgdState``.
+maps the chain to the port's ``AdamState`` / ``SgdState``; ``params_to_jax``
+and ``opt_state_to_jax`` go the other way, for the checkpoint writer.
 """
 
 from __future__ import annotations
@@ -61,6 +62,12 @@ def params_from_jax(tree):
     """Nested dict / list / tuple tree of numpy arrays -> the same tree of
     CPU torch tensors (copies; dtypes kept)."""
     return tree_map(_to_tensor, tree)
+
+
+def params_to_jax(tree):
+    """The port's tensor tree -> the same tree of numpy arrays (host
+    copies), as the JAX package pickles its params."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
 
 
 def check_params(model, params, name: str = "params") -> None:
@@ -110,3 +117,19 @@ def opt_state_from_jax(chain, model=None):
     if "mu" in trees:
         return AdamState(count=int(np.asarray(parts[0].count)), **trees)
     return SgdState(trace=trees.get("trace"))
+
+
+def opt_state_to_jax(state, opt):
+    """The port's optimizer state -> the optax chain state the JAX package
+    builds for ``opt`` (clamp, weight decay when ``optim_weight_decay``,
+    then adam or sgd's momentum trace), numpy leaves, ``count`` int32 as
+    optax keeps it."""
+    chain = [JaxEmptyState()]
+    if opt.optim_weight_decay:
+        chain.append(JaxEmptyState())
+    if isinstance(state, AdamState):
+        chain.append(JaxScaleByAdamState(np.asarray(state.count, np.int32),
+                                         params_to_jax(state.mu), params_to_jax(state.nu)))
+    elif state.trace is not None:
+        chain.append(JaxTraceState(params_to_jax(state.trace)))
+    return tuple(chain)

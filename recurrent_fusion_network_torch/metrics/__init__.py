@@ -1,1 +1,2 @@
-"""Caption metrics the SCST reward reads (``bleu.py``)."""
+"""Caption metrics: BLEU, ROUGE-L, CIDEr-D, METEOR, approximate SPICE and
+the COCO-style harness (``coco_eval.py``)."""

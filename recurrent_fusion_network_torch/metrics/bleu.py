@@ -1,16 +1,16 @@
 """BLEU-1..4 with the 'closest' reference-length brevity penalty.
 
-The port's copy of the part of ``recurrent_fusion_network_tpu/metrics/
-bleu.py`` that the SCST reward reads when ``bleu4_weight > 0``: the
-smoothed per-sentence scores (the reference's BleuD) beside the corpus
-scores of coco-caption's BLEU.
+The port's copy of ``recurrent_fusion_network_tpu/metrics/bleu.py``: the
+corpus scores of coco-caption's BLEU (``compute_bleu``, the metric column)
+beside the smoothed per-sentence scores (the reference's BleuD) that the
+SCST reward reads when ``bleu4_weight > 0``.
 """
 
 from __future__ import annotations
 
 import math
 from collections import Counter
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 SMALL = 1e-9
 TINY = 1e-15  # so that a guess count of 0 still scores 0
@@ -80,3 +80,14 @@ class BleuScorer:
             logs += math.log(total_correct[k] + TINY) - math.log(total_guess[k] + SMALL)
             corpus.append(math.exp(logs / (k + 1)) * bp)
         return corpus, per_sentence
+
+
+def compute_bleu(gts: Dict, res: Dict, n: int = 4):
+    """gts / res: {key: [tokenized sentence strings]}, one sentence per key
+    in res. -> (corpus scores [n], per-sentence scores as n lists in
+    string-sorted key order): pycocoevalcap's Bleu.compute_score."""
+    scorer = BleuScorer(n)
+    for k in sorted(gts.keys(), key=str):
+        scorer.append(res[k][0].split(), [r.split() for r in gts[k]])
+    corpus, per_sent = scorer.compute()
+    return corpus, [[s[i] for s in per_sent] for i in range(n)]

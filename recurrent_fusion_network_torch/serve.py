@@ -20,7 +20,7 @@ import threading
 
 import torch
 
-from .config import merge_checkpoint_opt, parse_opt
+from .config import merge_checkpoint_opt, parse_serve_opt
 from .convert import check_params, params_from_jax
 from .decoding.http_serve import CaptionService, run_server
 from .device import resolve_device
@@ -53,7 +53,7 @@ def build_service(opt) -> CaptionService:
 
 
 def main(argv=None):
-    opt = parse_opt(argv)
+    opt = parse_serve_opt(argv)
     service = build_service(opt)
     # installed before warmup, so a signal during warmup still exits 0
     stop = threading.Event()

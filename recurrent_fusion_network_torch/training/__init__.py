@@ -1,2 +1,3 @@
-"""Training-side modules of the port: checkpoint loading, the XE and SCST
-criterions, the optimizer, and the XE and SCST train loops."""
+"""Training-side modules of the port: checkpoint triples, the XE and SCST
+criterions, the optimizer, the XE and SCST train loops, eval_split and the
+preemption guard."""

@@ -1,22 +1,30 @@
-"""Read checkpoints written by the JAX package.
+"""Checkpoint triples, in the JAX package's format both ways.
 
-Counterpart of the load half of
-``recurrent_fusion_network_tpu/training/checkpoint.py``, which writes per
-tag ``{prefix}model_{id}_{rank}[-best].pkl`` (the params tree as numpy
-arrays), ``{prefix}optimizer_{id}_{rank}[-best].pkl`` (the optax chain's
-state) and ``{prefix}infos_{id}_{rank}[-best].pkl`` (opt snapshot, vocab,
-histories, loader state). All three are read with an unpickler that admits
-only numpy, ml_dtypes and builtin containers, plus the JAX package's
-``EncoderInfo`` and optax's state classes, which it rebuilds as the port's
-own named tuples (``convert.py``): loading never imports the JAX package or
-optax. Writing checkpoints is not ported yet (ROADMAP.md queue 1, M6).
+Counterpart of ``recurrent_fusion_network_tpu/training/checkpoint.py``
+(its pickle backend). Per tag there are three files:
+``{prefix}model_{id}_{rank}[-best].pkl`` (the params tree as numpy arrays),
+``{prefix}optimizer_{id}_{rank}[-best].pkl`` (the optax chain's state) and
+``{prefix}infos_{id}_{rank}[-best].pkl`` (opt snapshot, vocab, histories,
+loader state).
+
+Reading admits only numpy, ml_dtypes and builtin containers, plus the JAX
+package's ``EncoderInfo`` and optax's state classes, which it rebuilds as
+the port's own classes (``convert.py``): loading never imports the JAX
+package or optax. Writing pickles those port classes under the JAX
+package's and optax's class paths, written by name (``_JaxNamePickler``),
+so the JAX package reads a port-written triple as its own: an encoder entry
+stays an ``EncoderInfo`` (a plain dict would make its eval score synthetic
+features), and the optimizer file is the chain ``opt_state_to_jax`` builds.
+The port's infos carry no ``rng_key`` (a JAX key); its own random stream
+rides under ``torch_rng_state``. Orbax checkpoints are not ported
+(ROADMAP.md queue 1, M11).
 """
 
 from __future__ import annotations
 
 import os
 import pickle
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 from ..convert import JaxEmptyState, JaxScaleByAdamState, JaxTraceState
 from ..feat_registry import EncoderInfo
@@ -30,6 +38,15 @@ _REDIRECT = {
     ("optax._src.transform", "ScaleByAdamState"): JaxScaleByAdamState,
     ("optax._src.transform", "TraceState"): JaxTraceState,  # older optax
     ("optax.transforms._accumulation", "TraceState"): JaxTraceState,
+}
+# the class paths the port's classes are written under (the installed optax
+# keeps TraceState in optax.transforms._accumulation; older ones read it
+# from optax._src.transform, see _REDIRECT)
+_JAX_NAMES = {
+    EncoderInfo: ("recurrent_fusion_network_tpu.feat_registry", "EncoderInfo"),
+    JaxEmptyState: ("optax._src.base", "EmptyState"),
+    JaxScaleByAdamState: ("optax._src.transform", "ScaleByAdamState"),
+    JaxTraceState: ("optax.transforms._accumulation", "TraceState"),
 }
 _BUILTINS = {"dict", "list", "tuple", "set", "frozenset", "slice", "complex",
              "bytearray", "range"}
@@ -58,6 +75,23 @@ class _Unpickler(pickle.Unpickler):
             f"checkpoint references {module}.{name}, which the port does not load")
 
 
+class _JaxNamePickler(pickle._Pickler):
+    """The pure-Python pickler, writing the classes of ``_JAX_NAMES`` by
+    their JAX-side names without importing them. The C pickler cannot: it
+    writes a class (also one that ``reducer_override`` or ``__reduce__``
+    names) only after importing its module and finding that very object
+    there. Array data goes to the file as bytes either way."""
+
+    def save_global(self, obj, name=None):
+        path = _JAX_NAMES.get(obj)
+        if path is None:
+            return super().save_global(obj, name)
+        self.save(path[0])
+        self.save(path[1])
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
+
+
 def _load_pickle(path: str):
     with open(path, "rb") as f:
         return _Unpickler(f).load()
@@ -66,6 +100,41 @@ def _load_pickle(path: str):
 def _path(checkpoint_path, kind, run_id, rank, best, prefix) -> str:
     tag = f"{prefix}{kind}_{run_id}_{rank}" + ("-best" if best else "")
     return os.path.join(checkpoint_path, tag + ".pkl")
+
+
+def save_checkpoint(checkpoint_path: str, run_id: str, rank: int, *, params,
+                    opt_state=None, infos: Optional[dict] = None, best: bool = False,
+                    prefix: str = "") -> None:
+    """Write the triple of one tag. ``params``: the params tree as numpy
+    arrays (``convert.params_to_jax``); ``opt_state``: the optax chain
+    (``convert.opt_state_to_jax``) or None; ``infos``: the infos dict. Each
+    file is written to ``.tmp`` and renamed over the old one, so a crash
+    mid-write never truncates the previous checkpoint. A params-only save
+    removes the tag's optimizer file: the triple is a unit, and a stale
+    optimizer beside fresh params would resume with the wrong moments."""
+    os.makedirs(checkpoint_path, exist_ok=True)
+
+    def dump(kind, obj, pickler):
+        path = _path(checkpoint_path, kind, run_id, rank, best, prefix)
+        with open(path + ".tmp", "wb") as f:
+            pickler(f, protocol=4).dump(obj)
+        os.replace(path + ".tmp", path)
+
+    dump("model", params, pickle.Pickler)
+    if opt_state is not None:
+        dump("optimizer", opt_state, _JaxNamePickler)
+    else:
+        stale = _path(checkpoint_path, "optimizer", run_id, rank, best, prefix)
+        if os.path.exists(stale):
+            os.remove(stale)
+    if infos is not None:
+        dump("infos", infos, _JaxNamePickler)
+
+
+def has_checkpoint(checkpoint_path: str, run_id: str, rank: int = 0, *,
+                   best: bool = True, prefix: str = "") -> bool:
+    """Whether the tag's model file exists (a probe that reads nothing)."""
+    return os.path.exists(_path(checkpoint_path, "model", run_id, rank, best, prefix))
 
 
 def load_checkpoint(checkpoint_path: str, run_id: str, rank: int = 0, *,

@@ -22,16 +22,22 @@ passes. With ``--use_ppo``, each of the ppo_k extra steps re-evaluates the
 ratio against the frozen rollout log-probs with the current parameters.
 
 The rollout draws from a ``torch.Generator`` seeded with seed + rank. A
-``--rl_resume`` therefore restarts the draws from the seed: the JAX run's
-rollout key chain (its ``rng_key`` in the infos) cannot be continued, as
-the two frameworks' random streams differ.
+``--rl_resume`` from a port-written ``rl_`` triple continues that stream
+(its ``torch_rng_state``); from a JAX-written one it restarts from the
+seed, as the JAX run's key chain (its ``rng_key``) cannot be continued.
 
-Not ported yet: periodic eval_split and checkpoint writing (M6: ``train_rl``
-raises ``NotImplementedError`` at an eval / checkpoint boundary), the
-preemption guard (M6), the JSONL logger and the trace window (M11), SPICE
-rewards (raises), multi-seed SCST fleets (M9) and the data-parallel mesh
-(M10). ``train_rl`` takes any loader whose ``get_batch("train")`` returns
-the JAX loader's batch dict, with ``gts``.
+Every ``save_checkpoint_every`` iterations: ``eval_split`` on val, the
+``rl_``-prefixed triples (non-best, and best by CIDEr, measured against the
+warm start's score under ``--load_best_score``), the early stop after
+``num_eval_no_improve`` stagnant evals; SIGTERM saves the ``rl_`` triple at
+the next boundary. On a CUDA device batches are staged in page-locked
+memory and copied on a side stream (``data/pinned.py``), so under
+``--rl_overlap 1`` the copy of batch k+1 runs while step k computes.
+
+Not ported: the trace window (M11), SPICE rewards (raises), multi-seed
+SCST fleets (M9) and the data-parallel mesh (M10). ``train_rl`` takes any
+loader whose ``get_batch("train")`` returns the loader's batch dict, with
+``gts``.
 """
 
 from __future__ import annotations
@@ -49,9 +55,12 @@ from ..models import setup
 from ..ops.initializers import tree_map
 from ..rewards.cider_d import CiderD
 from ..rewards.self_critical import check_spice_weight, compute_reward
+from ..utils.logging import JsonlLogger
 from .criterion import make_rl_criterion
 from .optim import lr_for_epoch, make_optimizer
-from .train_loop import device_batch, grad_update, resume, state_fits
+from .preempt import PreemptGuard
+from .train_loop import (Boundaries, device_batch, grad_update, restore_generator, resume,
+                         state_fits)
 
 
 def make_rollout_fn(model):
@@ -122,16 +131,18 @@ def make_rl_step(model, rl_crit, tx):
 def train_rl(opt, loader, cider_scorer: CiderD, *, rank: int = 0,
              max_iterations: Optional[int] = None, log_fn=print):
     """Run SCST training on ``opt.device`` (CUDA unless "cpu"). Returns the
-    infos dict: iter, epoch, loss_history (the mean reward per logged
+    infos dict of the last checkpoint snapshot (or of the warm start)
+    updated with iter, epoch, loss_history (the mean reward per logged
     iteration, as the JAX package records it), train_loss_history (the
-    criterion's value), lr_history, rl_lr_base, final_params and
-    final_opt_state.
+    criterion's value), lr_history, val_result_history, rl_lr_base,
+    final_params and final_opt_state.
 
     With ``opt.start_from``: a warm start from the XE best triple
     (``model_{id}_{rank}-best.pkl`` ...) or, with ``--rl_resume``, a resume
-    from the RL run's own ``rl_`` triple (its ``rl_lr_base`` and optimizer
-    moments adopted). ``--load_lr`` sets the lr base to min(lr history) /
-    optim_rl_lr_ratio and adopts the checkpoint's optimizer state.
+    from the RL run's own ``rl_`` triple (its ``rl_lr_base``, optimizer
+    moments, early-stop count and random stream adopted). ``--load_lr``
+    sets the lr base to min(lr history) / optim_rl_lr_ratio and adopts the
+    checkpoint's optimizer state.
     """
     device = resolve_device(opt.device)
     check_spice_weight(opt.spice_weight)
@@ -146,6 +157,8 @@ def train_rl(opt, loader, cider_scorer: CiderD, *, rank: int = 0,
         params, saved_state, infos = resume(
             opt, model, loader, rank, device, best=not rl_resume,
             prefix="rl_" if rl_resume else "", with_opt_state=bool(opt.load_lr or rl_resume))
+        if rl_resume:  # a warm start keeps its own fresh stream
+            restore_generator(generator, infos)
     else:
         params = model.init_params(generator, device=device)
 
@@ -154,6 +167,8 @@ def train_rl(opt, loader, cider_scorer: CiderD, *, rank: int = 0,
     loss_history = dict(infos.get("loss_history", {}))
     lr_history = dict(infos.get("lr_history", {}))
     train_loss_history = {}
+    # a warm start measures against the XE best score but counts afresh
+    bounds = Boundaries(opt, rank, infos, prefix="rl_", resume_count=rl_resume)
 
     rl_lr_base = opt.optim_rl_lr
     if rl_resume:
@@ -181,6 +196,8 @@ def train_rl(opt, loader, cider_scorer: CiderD, *, rank: int = 0,
         opt_state = tx.init(params)
     rollout_fn = make_rollout_fn(model)
     rl_step, old_logprobs_fn = make_rl_step(model, rl_crit, tx)
+    jlog = JsonlLogger(opt.json_log or None)
+    guard = PreemptGuard.from_opt(opt)
 
     def fetch_and_roll_out():
         data = loader.get_batch("train")
@@ -188,70 +205,109 @@ def train_rl(opt, loader, cider_scorer: CiderD, *, rank: int = 0,
         seq, greedy_seq = rollout_fn(params, fc, att, generator)
         return data, fc, att, top_words, seq, greedy_seq
 
+    def snapshot_infos():
+        return bounds.snapshot(loader, generator, iteration, epoch, loss_history=loss_history,
+                               lr_history=lr_history, rl_lr_base=rl_lr_base)
+
     # --rl_overlap (default on): after step k is queued, batch k+1 is
     # fetched and rollout k+1 queued on step k's params before loss k is
     # read, so the host dispatches the rollout while the device runs the
-    # step. Draw order, fetch order and numerics are the serial loop's.
+    # step. Draw order, fetch order and numerics are the serial loop's; the
+    # continuation verdict comes first, so a snapshot never sees a
+    # prefetched batch.
     overlap = bool(opt.rl_overlap)
     update_lr_flag = True
     lr = rl_lr_base
     pending = None
-    while True:
-        if update_lr_flag:
-            lr = lr_for_epoch(opt, epoch, rl_lr_base)
-            opt.current_lr = lr
-            update_lr_flag = False
+    try:
+        while True:
+            if update_lr_flag:
+                lr = lr_for_epoch(opt, epoch, rl_lr_base)
+                opt.current_lr = lr
+                update_lr_flag = False
 
-        start = time.time()
-        if pending is None:
-            data, fc, att, top_words, seq, greedy_seq = fetch_and_roll_out()
-        else:
-            (data, fc, att, top_words, seq, greedy_seq), pending = pending, None
-        rewards = compute_reward(
-            cider_scorer, seq.cpu().numpy(), greedy_seq.cpu().numpy(), data["gts"],
-            use_baseline=bool(opt.use_baseline), cider_weight=opt.cider_weight,
-            bleu4_weight=opt.bleu4_weight, spice_weight=opt.spice_weight)
-        reward_dev = torch.as_tensor(rewards, dtype=torch.float32, device=device)
+            start = time.time()
+            if pending is None:
+                data, fc, att, top_words, seq, greedy_seq = fetch_and_roll_out()
+            else:
+                (data, fc, att, top_words, seq, greedy_seq), pending = pending, None
+            rewards = compute_reward(
+                cider_scorer, seq.cpu().numpy(), greedy_seq.cpu().numpy(), data["gts"],
+                use_baseline=bool(opt.use_baseline), cider_weight=opt.cider_weight,
+                bleu4_weight=opt.bleu4_weight, spice_weight=opt.spice_weight)
+            reward_dev = torch.as_tensor(rewards, dtype=torch.float32, device=device)
 
-        if opt.use_ppo:
-            slp_old = old_logprobs_fn(params, fc, att, seq)
-            for _ in range(opt.ppo_k + 1):
+            if opt.use_ppo:
+                slp_old = old_logprobs_fn(params, fc, att, seq)
+                for _ in range(opt.ppo_k + 1):
+                    params, opt_state, loss = rl_step(params, opt_state, fc, att, seq,
+                                                      reward_dev, top_words, lr, slp_old)
+            else:  # the criterion reads no old log-probs without PPO
                 params, opt_state, loss = rl_step(params, opt_state, fc, att, seq,
-                                                  reward_dev, top_words, lr, slp_old)
-        else:  # the criterion reads no old log-probs without PPO
-            params, opt_state, loss = rl_step(params, opt_state, fc, att, seq, reward_dev,
-                                              top_words, lr, torch.zeros_like(reward_dev))
+                                                  reward_dev, top_words, lr,
+                                                  torch.zeros_like(reward_dev))
 
-        if data["bounds"]["wrapped"]:
-            epoch += 1
-            update_lr_flag = True
-        avg_reward = float(np.mean(rewards[:, 0]))
-        is_log = iteration % opt.losses_log_every == 0
-        if is_log:
-            loss_history[iteration] = avg_reward
-            lr_history[iteration] = lr
-        if iteration % opt.save_checkpoint_every == 0 and iteration > 0:
-            raise NotImplementedError(
-                f"iteration {iteration} is an eval / checkpoint boundary "
-                f"(save_checkpoint_every {opt.save_checkpoint_every}): eval_split and "
-                "checkpoint writing are not ported yet (ROADMAP.md queue 1, M6)")
+            if data["bounds"]["wrapped"]:
+                epoch += 1
+                update_lr_flag = True
+            avg_reward = float(np.mean(rewards[:, 0]))
+            is_log = iteration % opt.losses_log_every == 0
+            if is_log:
+                loss_history[iteration] = avg_reward
+                lr_history[iteration] = lr
 
-        more = (not (opt.max_epochs != -1 and epoch >= opt.max_epochs)
-                and not (max_iterations is not None and iteration + 1 >= max_iterations))
-        if overlap and more:
-            pending = fetch_and_roll_out()
-        train_loss = float(loss)  # waits for step k only
-        elapsed = time.time() - start
-        if is_log:
-            train_loss_history[iteration] = train_loss
-        log_fn(f"rank {rank}, iter {iteration}, (epoch {epoch}), avg_reward: "
-               f"{avg_reward:.3f}, train_loss: {train_loss:.4f}, lr: {lr:.2e}, "
-               f"time: {elapsed:.3f}")
-        iteration += 1
-        if not more:
-            break
+            stop = False
+            train_loss = elapsed = None
+            if iteration % opt.save_checkpoint_every == 0 and iteration > 0:
+                train_loss = float(loss)  # the eval blocks anyway
+                elapsed = time.time() - start
+                val_loss, lang_stats, best, eval_s = bounds.evaluate(model, params, loader,
+                                                                     iteration)
+                t_save = time.time()
+                infos = snapshot_infos()
+                bounds.save(params, opt_state, infos, best=best)
+                if best:
+                    log_fn(f"rl model saved (CIDEr {bounds.current_score:.3f})")
+                jlog.log(event="rl_val", iter=iteration, loss=val_loss, seconds=eval_s,
+                         save_seconds=time.time() - t_save, best=best, **(lang_stats or {}))
+                if bounds.stagnant():
+                    log_fn("no improvement, exit")
+                    stop = True
 
+            if not stop and guard.sync():
+                infos = snapshot_infos()
+                bounds.save(params, opt_state, infos)
+                log_fn(f"rank {rank}: preempted — rl checkpoint saved "
+                       f"(resumes at iter {iteration + 1})")
+                stop = True
+
+            more = (not stop
+                    and not (opt.max_epochs != -1 and epoch >= opt.max_epochs)
+                    and not (max_iterations is not None and iteration + 1 >= max_iterations))
+            if overlap and more:
+                pending = fetch_and_roll_out()
+            if train_loss is None:
+                train_loss = float(loss)  # waits for step k only
+                elapsed = time.time() - start
+            if is_log:
+                train_loss_history[iteration] = train_loss
+                jlog.log(event="rl_train", iter=iteration, epoch=epoch, avg_reward=avg_reward,
+                         loss=train_loss, lr=lr, seconds=elapsed)
+            if not stop:
+                log_fn(f"rank {rank}, iter {iteration}, (epoch {epoch}), avg_reward: "
+                       f"{avg_reward:.3f}, train_loss: {train_loss:.4f}, lr: {lr:.2e}, "
+                       f"time: {elapsed:.3f}")
+            iteration += 1
+            if stop or not more:
+                break
+    finally:
+        jlog.close()
+        guard.close()
+
+    infos = dict(infos)
     infos.update(iter=iteration, epoch=epoch, loss_history=loss_history,
                  lr_history=lr_history, train_loss_history=train_loss_history,
-                 rl_lr_base=rl_lr_base, final_params=params, final_opt_state=opt_state)
+                 val_result_history=bounds.val_result_history,
+                 best_val_score=bounds.best_val_score, rl_lr_base=rl_lr_base,
+                 final_params=params, final_opt_state=opt_state)
     return infos

@@ -16,6 +16,7 @@ are forced (a scripted step function) or compared through what they feed
     atol only, as in test_train_step_matches_jax).
 """
 
+import os
 from unittest import mock
 
 import jax
@@ -546,10 +547,15 @@ def test_train_rl_ppo_takes_ppo_k_plus_one_steps_per_iteration():
     assert all(np.isfinite(v) for v in infos["train_loss_history"].values())
 
 
-def test_train_rl_stops_at_an_unported_eval_boundary_and_for_spice():
+def test_train_rl_evaluates_and_writes_rl_triples_at_boundaries_and_raises_for_spice(tmp_path):
+    """train_rl() evaluates at iterations 2 and 4 and writes the rl_ triple
+    there; SPICE rewards raise."""
     _, topt, loader = _rl_synthetic(save_checkpoint_every=2)
-    with pytest.raises(NotImplementedError, match="M6"):
-        t_rl.train_rl(topt, loader, _scorer(loader), max_iterations=5, log_fn=quiet)
+    topt.checkpoint_path, topt.id = str(tmp_path), "b"
+    topt.eval_results_dir = str(tmp_path / "eval_results")
+    infos = t_rl.train_rl(topt, loader, _scorer(loader), max_iterations=5, log_fn=quiet)
+    assert infos["iter"] == 5 and sorted(infos["val_result_history"]) == [2, 4]
+    assert os.path.exists(tmp_path / "rl_model_b_0.pkl")
     _, topt, loader = _rl_synthetic()
     topt.spice_weight = 0.3
     with pytest.raises(NotImplementedError, match="SPICE"):

@@ -53,7 +53,8 @@ def _tiny_model():
 
 
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda, tmp_path):
-    from recurrent_fusion_network_torch import serve
+    from recurrent_fusion_network_torch import eval as eval_cli
+    from recurrent_fusion_network_torch import main, main_rl, serve
     from recurrent_fusion_network_torch.decoding.http_serve import CaptionService
     from recurrent_fusion_network_torch.decoding.serve import CaptionServer
     from recurrent_fusion_network_torch.device import resolve_device
@@ -65,8 +66,11 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda, tmp_path):
         lambda: model.init_params(torch.Generator().manual_seed(0)),
         lambda: CaptionService(model, params, {"1": "a"}),
         lambda: CaptionServer(lambda f, a: None, 2),
-        # before the (missing) checkpoint is read
+        # before the (missing) checkpoint or data is read
         lambda: serve.main(["--model_path", str(tmp_path), "--load_model_id", "x"]),
+        lambda: eval_cli.main(["--model_path", str(tmp_path), "--load_model_id", "x"]),
+        lambda: main.main(["--feature_type", "synthetic", "--input_json", str(tmp_path)]),
+        lambda: main_rl.main(["--feature_type", "synthetic", "--start_from", str(tmp_path)]),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()

@@ -16,6 +16,7 @@ held to atol 2e-5 alone and their params after n steps to atol lr * n.
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -500,10 +501,15 @@ def test_arch_check_resolves_auto_tied_keys():
         assert_arch_matches(TorchOptions(tied_att_keys=1, rnn_size=16), saved)
 
 
-def test_train_stops_at_an_unported_eval_boundary_and_raises_for_remat():
+def test_train_evaluates_and_writes_triples_at_boundaries_and_raises_for_remat(tmp_path):
+    """train() evaluates at iterations 2 and 4 and writes the triple there;
+    --use_remat raises."""
     _, topt, loader = _synthetic(save_checkpoint_every=2)
-    with pytest.raises(NotImplementedError, match="M6"):
-        t_train(topt, loader, max_iterations=5, log_fn=lambda *_: None)
+    topt.checkpoint_path, topt.id = str(tmp_path), "b"
+    topt.eval_results_dir = str(tmp_path / "eval_results")
+    infos = t_train(topt, loader, max_iterations=5, log_fn=lambda *_: None)
+    assert infos["iter"] == 5 and sorted(infos["val_result_history"]) == [2, 4]
+    assert os.path.exists(tmp_path / "model_b_0.pkl")
     _, topt, loader = _synthetic()
     topt.use_remat = 1
     with pytest.raises(NotImplementedError, match="remat"):
