@@ -79,7 +79,27 @@ Phases, in order; any failure exits non-zero and prints no result line:
               batch copy and the share of it under the step before, eval
               (decode vs metrics) and triple-write ms, and the optimizer
               file's write with the checkpoint writer's pure-Python pickler
-              against the C pickler. Files are deleted when done.
+              against the C pickler. Files are deleted when done. Its argv
+              names --caption_model recurrent_fusion_model (the CLIs'
+              default is show_tell, as in the JAX package);
+  9. models:  ShowTell (resnet fc 2048, E = R = 512, 1 layer) and ReviewNet
+              (inception_v3: fc 2048, att 64 x 1280; 8 review steps, H = 512,
+              1000 top words) in three variants, tied keys, untied
+              (--reference_parity) and the 10-expert MoS head; vocab 9487,
+              16 tokens, random weights from a seeded generator. Both
+              kernels against their plain versions at every ReviewNet site
+              (review cells at A = 64, D = 1280; the decoder over the 8
+              thought vectors at B * beam, B and 2B rows; f32 and bf16; as
+              phases 3 and 6). Per model: f32 beam-3 tokens with the kernels
+              equal to those with the plain versions (ReviewNet); a bf16
+              CaptionService (batch 16) behind the HTTP front end; B = 512
+              beam-3 captions/s; 20 bf16 XE steps through train() on a fixed
+              batch of 100 images x 5 (step median and quartiles, peak
+              memory); 10 f32 SCST iterations through train_rl() at B = 256.
+              The counters are reset just before and read just after each
+              path: ReviewNet launches 8 + 16 forward per beam-3 batch,
+              8 + 17 of each kernel per XE step and (8 + 17) x 2 + (8 + 17)
+              per SCST iteration, ShowTell none, none on the scalar path.
 The line before the last is the kernels JSON, the last line the device JSON.
 """
 
@@ -295,14 +315,16 @@ def check_attention_kernel(torch, aa, sites, dtypes):
 
 
 def features(torch, model, batch, gen, dtype):
-    fcs = [torch.randn(batch, d, generator=gen, device=DEVICE).to(dtype)
-           for d in model.fc_feat_sizes]
+    from recurrent_fusion_network_torch.decoding.http_serve import feature_shapes
+
+    fc_dims, att_shapes = feature_shapes(model)
+    fcs = [torch.randn(batch, d, generator=gen, device=DEVICE).to(dtype) for d in fc_dims]
     atts = [torch.randn(batch, a, d, generator=gen, device=DEVICE).to(dtype)
-            for a, d in zip(model.att_nums, model.att_feat_sizes)]
+            for a, d in att_shapes]
     return fcs, atts
 
 
-def check_plain_vs_kernel_tokens(torch, model, params):
+def check_plain_vs_kernel_tokens(torch, model, params, what="slice"):
     from unittest import mock
 
     from recurrent_fusion_network_torch.decoding.api import model_sample
@@ -320,17 +342,18 @@ def check_plain_vs_kernel_tokens(torch, model, params):
     lp_err = (k.top_p - p.top_p).abs().max().item()
     if not torch.allclose(k.top_p, p.top_p, rtol=1e-4, atol=1e-4):
         raise AssertionError(f"f32 beam-3 top_p differ: {lp_err}")
-    log(f"slice f32 beam-3 (B=8): tokens identical with and without the kernel, "
+    log(f"{what} f32 beam-3 (B=8): tokens identical with and without the kernel, "
         f"top_p max abs diff {lp_err:.3e}")
 
 
-def serve_over_http(torch, model, params, counters):
+def serve_over_http(torch, model, params, counters, per_batch=64, what="slice"):
     import http.client
 
     import numpy as np
 
     from recurrent_fusion_network_torch.decoding.http_serve import (
         CaptionService,
+        feature_shapes,
         run_server,
     )
     from recurrent_fusion_network_torch.training.checkpoint import cast_tree
@@ -345,13 +368,13 @@ def serve_over_http(torch, model, params, counters):
         port = httpd.server_address[1]
         rng = np.random.default_rng(3)
         bodies = []
+        fc_dims, att_shapes = feature_shapes(model)
         for _ in range(N_REQUESTS):
             buf = io.BytesIO()
             np.savez(buf, **{f"fc_{i}": rng.standard_normal(d).astype(np.float32)
-                             for i, d in enumerate(model.fc_feat_sizes)},
-                     **{f"att_{i}": rng.standard_normal((a, d)).astype(np.float32)
-                        for i, (a, d) in enumerate(zip(model.att_nums,
-                                                       model.att_feat_sizes))})
+                             for i, d in enumerate(fc_dims)},
+                     **{f"att_{i}": rng.standard_normal(shape).astype(np.float32)
+                        for i, shape in enumerate(att_shapes)})
             bodies.append(buf.getvalue())
         replies = [None] * N_REQUESTS
 
@@ -389,26 +412,26 @@ def serve_over_http(torch, model, params, counters):
             httpd.server_close()
     bad = [r for r in replies if r is None or r[0] != 200 or not r[1].get("caption")
            or not np.isfinite(r[1].get("logprob", float("nan")))]
-    log(f"slice http: {N_REQUESTS} concurrent /caption requests in {wall:.3f} s, "
+    log(f"{what} http: {N_REQUESTS} concurrent /caption requests in {wall:.3f} s, "
         f"{N_REQUESTS - len(bad)} answered 200 with a caption; server stats {stats}; "
         f"example {replies[0][1] if replies[0] else None}")
     if bad:
         raise AssertionError(f"{len(bad)} bad HTTP replies, e.g. {bad[0]}")
     if stats["requests"] != N_REQUESTS or stats["padded_rows"] == 0:
         raise AssertionError(f"expected {N_REQUESTS} requests incl. a partial batch: {stats}")
-    per_batch = 64
     if launches["additive_attention"] != per_batch * stats["batches"]:
         raise AssertionError(
             f"additive_attention_fwd launched {launches['additive_attention']} times "
             f"for {stats['batches']} batches (expected {per_batch} per batch)")
-    log(f"slice launches: {launches} over {stats['batches']} batches "
+    log(f"{what} launches: {launches} over {stats['batches']} batches "
         f"({per_batch} additive_attention_fwd launches per batch)")
-    return launches, stats
+    return launches, dict(stats, wall_s=wall)
 
 
-def throughput(torch, model, params, card):
+def throughput(torch, model, params, card, what="throughput"):
     """Timed B = 512 beam-3 bf16 decodes through pipelined_map, then one
-    profiled decode: device busy time by kernel and the device's idle share."""
+    profiled decode: device busy time by kernel and the device's idle share.
+    -> (captions/s, ms per batch, idle share or None)."""
     from torch.profiler import ProfilerActivity, profile
 
     from recurrent_fusion_network_torch.decoding.api import model_sample
@@ -432,7 +455,7 @@ def throughput(torch, model, params, card):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     seq.cpu()
-    log("throughput: a B=512 decode queued under sync debug mode 'error': "
+    log(f"{what}: a B=512 decode queued under sync debug mode 'error': "
         "no host sync inside the decode")
     t0 = time.perf_counter()
     n = 0
@@ -440,7 +463,7 @@ def throughput(torch, model, params, card):
         n += seq.cpu().shape[0]
     dt = time.perf_counter() - t0
     rate = n / dt
-    log(f"throughput: {rate:.1f} captions/s (beam 3, bf16, B={BATCH}, {n_timed} "
+    log(f"{what}: {rate:.1f} captions/s (beam 3, bf16, B={BATCH}, {n_timed} "
         f"batches through pipelined_map depth 2, {dt:.4f} s, "
         f"{dt / n_timed * 1e3:.2f} ms per batch) on {card}")
 
@@ -449,15 +472,17 @@ def throughput(torch, model, params, card):
         decode(batches[1]).cpu()
         wall_ms = (time.perf_counter() - t1) * 1e3
     summary = device_profile(prof)
+    batch_ms = dt / n_timed * 1e3
     if summary is None:
-        log("profile: the profiler recorded no device events; device time not measured")
-        return rate
+        log(f"{what} profile: the profiler recorded no device events; device time not "
+            f"measured")
+        return rate, batch_ms, None
     busy, n_events, by_name = summary
-    log(f"profile: one B={BATCH} beam-3 bf16 decode: wall {wall_ms:.2f} ms, device busy "
-        f"{busy:.2f} ms, idle share {1 - busy / wall_ms:.3f}, {n_events} device events")
+    log(f"{what} profile: one B={BATCH} beam-3 bf16 decode: wall {wall_ms:.2f} ms, device "
+        f"busy {busy:.2f} ms, idle share {1 - busy / wall_ms:.3f}, {n_events} device events")
     for name, ms in by_name[:8]:
-        log(f"profile:   {ms:8.3f} ms  {name[:110]}")
-    return rate
+        log(f"{what} profile:   {ms:8.3f} ms  {name[:110]}")
+    return rate, batch_ms, 1 - busy / wall_ms
 
 
 def device_profile(prof):
@@ -582,15 +607,19 @@ def check_attention_backward(torch, aa, sites, dtypes):
 
 class FixedBatchLoader:
     """A loader for train() and train_rl(): the same batch of seeded random
-    numpy arrays at flagship widths on every call, in the JAX loader's
+    numpy arrays at the model's widths on every call, in the loader's
     batch-dict layout; one image per row, each with 5 random reference
     captions of seq_length tokens (``gts``)."""
 
     def __init__(self, model, rows, seed):
         import numpy as np
 
+        from recurrent_fusion_network_torch.decoding.http_serve import feature_shapes
+
         rng = np.random.default_rng(seed)
-        L, V, W = model.seq_length, model.vocab_size, model.top_words_count
+        # the loader's top-word targets (--top_words_count, 1000 by default)
+        # whether or not the model has a reason head
+        L, V, W = model.seq_length, model.vocab_size, getattr(model, "top_words_count", 1000)
         self.vocab_size, self.seq_length = V, L
         # 4 captions over 50 words, each row one of them, its top words the
         # caption's words: a batch the model can fit, so the loss must fall
@@ -604,14 +633,17 @@ class FixedBatchLoader:
             masks[r, :len(cap) + 2] = 1.0
             words = np.unique(cap - 1)
             top[r, :len(words)] = words
+        fc_dims, att_shapes = feature_shapes(model)
+        fcs = [rng.standard_normal((rows, d), np.float32) for d in fc_dims]
+        atts = [rng.standard_normal((rows,) + shape, np.float32) for shape in att_shapes]
         self.batch = {
-            "fc_feats_array": [rng.standard_normal((rows, d), np.float32)
-                               for d in model.fc_feat_sizes],
-            "att_feats_array": [rng.standard_normal((rows, a, d), np.float32)
-                                for a, d in zip(model.att_nums, model.att_feat_sizes)],
             "labels": labels, "masks": masks, "top_words": top,
             "bounds": {"it_pos_now": 0, "it_max": rows, "wrapped": False},
         }
+        if len(fcs) > 1:
+            self.batch.update(fc_feats_array=fcs, att_feats_array=atts)
+        else:  # the loader's single-encoder layout
+            self.batch.update(fc_feats=fcs[0], att_feats=atts[0])
         self.batch["gts"] = [rng.integers(1, V, (5, L)) for _ in range(rows)]
 
     def get_batch(self, split):
@@ -670,18 +702,31 @@ def check_grads(torch, grads, what):
 
 
 def train_opts(model, **over):
+    """The options train() and train_rl() build ``model`` from."""
     from recurrent_fusion_network_torch.config import Options
+    from recurrent_fusion_network_torch.decoding.http_serve import feature_shapes
 
-    feats = [{"fc_feat_size": f, "att_feat_size": a, "att_num": n}
-             for f, a, n in zip(model.fc_feat_sizes, model.att_feat_sizes, model.att_nums)]
-    return Options(caption_model="recurrent_fusion_model", feat_array_info=feats,
-                   rnn_size=model.rnn_size, input_encoding_size=model.input_encoding_size,
-                   att_hid_size=model.att_hid_size, num_review_steps=model.num_review_steps,
-                   num_review_steps_0=model.num_review_steps_0,
-                   top_words_count=model.top_words_count, tied_att_keys=1,
+    fc_dims, att_shapes = feature_shapes(model)
+    feats = [{"fc_feat_size": f, "att_feat_size": d, "att_num": a}
+             for f, (a, d) in zip(fc_dims, att_shapes)]
+    if hasattr(model, "fc_feat_sizes"):
+        arch = dict(caption_model="recurrent_fusion_model", att_hid_size=model.att_hid_size,
+                    num_review_steps=model.num_review_steps,
+                    num_review_steps_0=model.num_review_steps_0,
+                    top_words_count=model.top_words_count, tied_att_keys=1)
+    elif hasattr(model, "att_feat_size"):
+        arch = dict(caption_model="review_net", att_hid_size=model.att_hid_size,
+                    num_review_steps=model.num_review_steps,
+                    top_words_count=model.top_words_count,
+                    tied_att_keys=int(model.tied_att_keys), use_mos=int(model.use_mos),
+                    num_expert=model.num_expert)
+    else:
+        arch = dict(caption_model="show_tell", num_layers=model.num_layers)
+    return Options(feat_array_info=feats, rnn_size=model.rnn_size,
+                   input_encoding_size=model.input_encoding_size,
                    vocab_size=model.vocab_size, seq_length=model.seq_length,
                    device=DEVICE, seed=0, losses_log_every=1,
-                   save_checkpoint_every=10 ** 9, **over)
+                   save_checkpoint_every=10 ** 9, **arch, **over)
 
 
 def check_train_kernel_vs_plain(torch, model):
@@ -758,18 +803,21 @@ def check_train_kernel_vs_plain(torch, model):
                 f32_params_outside=n_out, f32_params=n_all, f32_params_max_diff=max_diff)
 
 
-def train_bf16(torch, model, card, counters):
-    """bf16 flagship steps at TRAIN_ROWS through train(): launch counts, a
-    falling loss, step time, rows/s, peak memory; then one profiled step."""
+def train_bf16(torch, model, card, counters, rows=TRAIN_ROWS, per_step=65, profile=True,
+               what="train"):
+    """bf16 steps at ``rows`` through train(): ``per_step`` launches of each
+    kernel per step, a falling loss, step time (the mean, and the median
+    and quartiles of the gaps between log lines past the first two), rows/s,
+    peak memory; then, with ``profile``, one profiled step."""
     from recurrent_fusion_network_torch.training.train_loop import train
 
-    loader = FixedBatchLoader(model, TRAIN_ROWS, 8)
+    loader = FixedBatchLoader(model, rows, 8)
     opt = train_opts(model, dtype="bfloat16")
     stamps = []
 
     def log_fn(line):
         stamps.append(time.perf_counter())
-        log(f"train: {line}")
+        log(f"{what}: {line}")
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -784,32 +832,38 @@ def train_bf16(torch, model, card, counters):
     scalar = sum(c.scalar_launches for c in counters)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [infos["loss_history"][i] for i in range(TRAIN_STEPS)]
-    if launches != {k: 65 * TRAIN_STEPS for k in launches}:
-        raise AssertionError(f"launches {launches} over {TRAIN_STEPS} steps "
-                             f"(expected 65 + 65 per step)")
+    if launches != {k: per_step * TRAIN_STEPS for k in launches}:
+        raise AssertionError(f"{what}: launches {launches} over {TRAIN_STEPS} steps "
+                             f"(expected {per_step} + {per_step} per step)")
     if scalar:
-        raise AssertionError(f"training took the kernels' scalar path {scalar} times")
+        raise AssertionError(f"{what} took the kernels' scalar path {scalar} times")
     falls = sum(b < a for a, b in zip(losses, losses[1:]))
     if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0] \
             or falls < 0.75 * (len(losses) - 1):
-        raise AssertionError(f"bf16 loss did not fall: {losses}")
+        raise AssertionError(f"{what}: bf16 loss did not fall: {losses}")
     # log line k comes after loss k is read: the window from line 2 to the
     # last is steady state (the first two lines carry warm-up)
     steady = [b - a for a, b in zip(stamps[2:], stamps[3:])]
     step_ms = (stamps[-1] - stamps[2]) / len(steady) * 1e3
-    log(f"train bf16 B={TRAIN_ROWS}: {TRAIN_STEPS} steps through train() in {wall:.3f} s "
+    median_ms = statistics.median(steady) * 1e3
+    quartiles = [q * 1e3 for q in statistics.quantiles(steady, n=4)[::2]]
+    log(f"{what} bf16 B={rows}: {TRAIN_STEPS} steps through train() in {wall:.3f} s "
         f"(params init included); steady step {step_ms:.2f} ms (mean over the last "
-        f"{len(steady)}; between log lines min {min(steady) * 1e3:.2f}, max "
+        f"{len(steady)}; between log lines median {median_ms:.2f}, quartiles "
+        f"{[round(q, 2) for q in quartiles]}, min {min(steady) * 1e3:.2f}, max "
         f"{max(steady) * 1e3:.2f}), "
-        f"{TRAIN_ROWS / step_ms * 1e3:.1f} rows/s; peak memory {peak_gb:.2f} GB; "
+        f"{rows / step_ms * 1e3:.1f} rows/s; peak memory {peak_gb:.2f} GB; "
         f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; launches {launches} "
-        f"(65 + 65 per step) on {card}")
+        f"({per_step} + {per_step} per step) on {card}")
+    out = dict(launches=launches, step_ms=step_ms, step_median_ms=median_ms,
+               step_quartiles_ms=quartiles, rows_per_s=rows / step_ms * 1e3,
+               peak_gb=peak_gb, losses=losses)
     params = infos["final_params"]
     state = infos["final_opt_state"]
     del infos
-    prof = profile_train_step(torch, model, opt, loader, params, state)
-    return dict(launches=launches, step_ms=step_ms, rows_per_s=TRAIN_ROWS / step_ms * 1e3,
-                peak_gb=peak_gb, losses=losses, **prof)
+    if profile:
+        out.update(profile_train_step(torch, model, opt, loader, params, state))
+    return out
 
 
 def profile_train_step(torch, model, opt, loader, params, state):
@@ -1020,10 +1074,12 @@ def check_rl_kernel_vs_plain(torch, model, scorer):
                 rl_grad_worst_share=worst_grad, rl_nonzero_rewards=n_reward)
 
 
-def train_scst(torch, model, scorer, card, counters, overlap):
+def train_scst(torch, model, scorer, card, counters, overlap, per_iter=(130, 65),
+               what="scst"):
     """RL_ITERS f32 SCST iterations at RL_ROWS through train_rl() on a fixed
     batch, with the launch counters reset just before and read just after:
-    130 + 65 launches per iteration, none on the kernels' scalar path,
+    ``per_iter`` launches per iteration (forward, backward; RFNet's 130 +
+    65), none on the kernels' scalar path,
     finite losses and rewards, sampled lanes unlike the greedy ones in at
     least half the rows; iteration time, images/s, peak memory."""
     from unittest import mock
@@ -1041,7 +1097,7 @@ def train_scst(torch, model, scorer, card, counters, overlap):
 
     def log_fn(line):
         stamps.append(time.perf_counter())
-        log(f"scst: {line}")
+        log(f"{what}: {line}")
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1058,25 +1114,27 @@ def train_scst(torch, model, scorer, card, counters, overlap):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     rewards = [infos["loss_history"][i] for i in range(RL_ITERS)]
     losses = [infos["train_loss_history"][i] for i in range(RL_ITERS)]
-    if launches != {"additive_attention_fwd": 130 * RL_ITERS,
-                    "additive_attention_bwd": 65 * RL_ITERS}:
-        raise AssertionError(f"launches {launches} over {RL_ITERS} SCST iterations "
-                             f"(expected 130 + 65 per iteration)")
+    if launches != {"additive_attention_fwd": per_iter[0] * RL_ITERS,
+                    "additive_attention_bwd": per_iter[1] * RL_ITERS}:
+        raise AssertionError(f"{what}: launches {launches} over {RL_ITERS} SCST iterations "
+                             f"(expected {per_iter[0]} + {per_iter[1]} per iteration)")
     if scalar:
-        raise AssertionError(f"SCST took the kernels' scalar path {scalar} times")
+        raise AssertionError(f"{what} took the kernels' scalar path {scalar} times")
     if not all(map(math.isfinite, rewards + losses)):
-        raise AssertionError(f"SCST rewards {rewards} or losses {losses} not finite")
+        raise AssertionError(f"{what}: rewards {rewards} or losses {losses} not finite")
     if len(differ) != RL_ITERS or min(differ) < 0.5:
-        raise AssertionError(f"sampled lanes equal the greedy ones too often: {differ}")
+        raise AssertionError(f"{what}: sampled lanes equal the greedy ones too often: "
+                             f"{differ}")
     steady = [b - a for a, b in zip(stamps[2:], stamps[3:])]
     iter_ms = (stamps[-1] - stamps[2]) / len(steady) * 1e3
-    log(f"scst f32 B={RL_ROWS} rl_overlap={overlap}: {RL_ITERS} iterations through "
+    log(f"{what} f32 B={RL_ROWS} rl_overlap={overlap}: {RL_ITERS} iterations through "
         f"train_rl() in {wall:.3f} s (params init included); steady iteration "
         f"{iter_ms:.2f} ms (mean over the last {len(steady)}; between log lines min "
         f"{min(steady) * 1e3:.2f}, max {max(steady) * 1e3:.2f}), "
         f"{RL_ROWS / iter_ms * 1e3:.1f} images/s; peak memory {peak_gb:.2f} GB; mean "
         f"rewards {rewards}; losses {losses}; sampled lanes unlike greedy in a share "
-        f"{min(differ):.3f}+ of rows; launches {launches} (130 + 65 per iteration) on {card}")
+        f"{min(differ):.3f}+ of rows; launches {launches} ({per_iter[0]} + {per_iter[1]} "
+        f"per iteration) on {card}")
     return dict(launches=launches, iter_ms=iter_ms, images_per_s=RL_ROWS / iter_ms * 1e3,
                 peak_gb=peak_gb, rewards=rewards, losses=losses,
                 differ_min=min(differ)), infos
@@ -1223,7 +1281,8 @@ def write_driver_dataset(root, model, seed=0):
             arr.flush()
             n_bytes += arr.nbytes
             del arr
-    argv = ["--feature_type", "feat_array", "--data_root", data_root]
+    argv = ["--caption_model", "recurrent_fusion_model", "--feature_type", "feat_array",
+            "--data_root", data_root]
     for k, v in paths.items():
         argv += [f"--{k}", v]
     return argv, n_bytes / 1e9
@@ -1653,6 +1712,150 @@ def _drivers(torch, model, card, counters, recorder, root, eval_cli, main_cli, m
     return out
 
 
+# ---------------------------------------------------------------- 9. models
+
+MODEL_XE_ROWS = 500  # 100 images x 5 captions
+
+
+def phase9_models():
+    """The single-encoder models at their published widths (random weights
+    from a seeded generator): ShowTell on the registry's resnet fc
+    features, 1 layer; ReviewNet on inception_v3's, 8 review steps, with
+    tied keys (the default), untied keys (--reference_parity) and the
+    10-expert Mixture-of-Softmax head (--use_mos 1 --num_expert 10)."""
+    from recurrent_fusion_network_torch import feat_registry
+    from recurrent_fusion_network_torch.models import ReviewNetModel, ShowTellModel
+
+    resnet = feat_registry.encoder_info("resnet", "unused")
+    inception = feat_registry.encoder_info("inception_v3", "unused")
+    common = dict(vocab_size=9487, seq_length=16, input_encoding_size=HID, rnn_size=HID)
+    review = dict(common, att_hid_size=HID, fc_feat_size=inception.fc_feat_size,
+                  att_feat_size=inception.att_feat_size, att_num=inception.att_num,
+                  num_review_steps=8, top_words_count=1000)
+    return {
+        "show_tell": ShowTellModel(**common, num_layers=1, fc_feat_size=resnet.fc_feat_size),
+        "review_net": ReviewNetModel(**review, tied_att_keys=True),
+        "review_net_parity": ReviewNetModel(**review, tied_att_keys=False),
+        "review_net_mos": ReviewNetModel(**review, tied_att_keys=True, use_mos=True,
+                                         num_expert=10),
+    }
+
+
+def model_launches(model):
+    """Launches of the forward kernel per beam-3 batch, of each kernel per
+    XE step, and (forward, backward) per SCST iteration: ReviewNet reads
+    attention once per review step (S) and once per decoder step (L beam
+    steps, L + 1 teacher-forced or sampled steps); ShowTell never."""
+    if not hasattr(model, "att_feat_size"):
+        return 0, 0, (0, 0)
+    S, T = model.num_review_steps, model.seq_length + 1
+    return S + T - 1, S + T, (2 * (S + T), S + T)
+
+
+def review_net_sites(model):
+    """(forward sites, backward sites) of the ReviewNet paths phase 9
+    drives, with their launches per path: beam-3 serving at BATCH images
+    (per batch), the bf16 XE step at MODEL_XE_ROWS and the f32 SCST
+    iteration at RL_ROWS (rollout over 2B lanes, then the step). The review
+    cells' values are the input features (no gradient), the decoder's the
+    thought vectors."""
+    S, T, A, D, R = (model.num_review_steps, model.seq_length + 1, model.att_num,
+                     model.att_feat_size, model.rnn_size)
+    fwd = [("review_net_review_serve", 1, BATCH, A, D, {"review_net_serve": S}),
+           ("review_net_decoder_beam", 1, BATCH * BEAM, S, R, {"review_net_serve": T - 1}),
+           ("review_net_review_train", 1, MODEL_XE_ROWS, A, D, {"review_net_train": S}),
+           ("review_net_decoder_train", 1, MODEL_XE_ROWS, S, R, {"review_net_train": T}),
+           ("review_net_review_scst", 1, RL_ROWS, A, D, {"review_net_scst": 2 * S}),
+           ("review_net_decoder_rollout", 1, 2 * RL_ROWS, S, R, {"review_net_scst": T}),
+           ("review_net_decoder_step", 1, RL_ROWS, S, R, {"review_net_scst": T})]
+    bwd = [("review_net_review_train", 1, MODEL_XE_ROWS, A, D, False, {"review_net_train": S}),
+           ("review_net_decoder_train", 1, MODEL_XE_ROWS, S, R, True, {"review_net_train": T}),
+           ("review_net_review_scst", 1, RL_ROWS, A, D, False, {"review_net_scst": S}),
+           ("review_net_decoder_step", 1, RL_ROWS, S, R, True, {"review_net_scst": T})]
+    return fwd, bwd
+
+
+def drive_model(torch, aa, name, model, scorer, card):
+    """Phase 9 for one model: (ReviewNet) f32 beam-3 tokens with the kernels
+    equal to those with the plain versions; a bf16 CaptionService of batch
+    16 behind the HTTP front end; B = 512 beam-3 captions/s; bf16 XE steps
+    through train() at MODEL_XE_ROWS; f32 SCST iterations through
+    train_rl() at RL_ROWS. The launch counters are reset just before and
+    read just after each path, and must read model_launches' counts."""
+    per_batch, per_step, per_iter = model_launches(model)
+    params = model.init_params(torch.Generator(device=DEVICE).manual_seed(20), device=DEVICE)
+    if per_batch:
+        check_plain_vs_kernel_tokens(torch, model, params, what=name)
+    launches, stats = serve_over_http(torch, model, params, [aa], per_batch=per_batch,
+                                      what=f"{name} serve")
+    rate, batch_ms, idle = throughput(torch, model, params, card, what=f"{name} throughput")
+    del params
+    torch.cuda.empty_cache()
+    xe = train_bf16(torch, model, card, [aa], rows=MODEL_XE_ROWS, per_step=per_step,
+                    profile=False, what=f"{name} xe")
+    torch.cuda.empty_cache()
+    scst, infos = train_scst(torch, model, scorer, card, [aa], overlap=1, per_iter=per_iter,
+                             what=f"{name} scst")
+    del infos
+    torch.cuda.empty_cache()
+    out = dict(serve=dict(launches=launches["additive_attention"], **stats),
+               captions_per_s=rate, batch_ms=batch_ms, decode_idle_share=idle, xe=xe,
+               scst=scst)
+    log(f"models {name}: {rate:.1f} captions/s (B={BATCH} beam 3 bf16, {batch_ms:.2f} ms "
+        f"per batch); XE bf16 B={MODEL_XE_ROWS} step median {xe['step_median_ms']:.2f} ms, "
+        f"quartiles {[round(q, 2) for q in xe['step_quartiles_ms']]}, peak "
+        f"{xe['peak_gb']:.2f} GB; SCST f32 B={RL_ROWS} iteration {scst['iter_ms']:.2f} ms, "
+        f"{scst['images_per_s']:.1f} images/s, peak {scst['peak_gb']:.2f} GB; launches "
+        f"serve {launches['additive_attention']} over {stats['batches']} batches, XE "
+        f"{xe['launches']}, SCST {scst['launches']} on {card}")
+    return out
+
+
+def models_phase(torch, aa, scorer, card):
+    """Phase 9: both kernels against their plain versions at ReviewNet's
+    sites (f32 and bf16; the three ReviewNet variants give the kernels the
+    same shapes), then every model's paths (``drive_model``). -> (forward
+    site rows, backward site rows, {model: its results})."""
+    t0 = time.perf_counter()
+    models = phase9_models()
+    fwd_sites, bwd_sites = review_net_sites(models["review_net"])
+    per_batch, per_step, per_iter = model_launches(models["review_net"])
+    if (per_path(fwd_sites, "review_net_serve"), per_path(fwd_sites, "review_net_train"),
+            per_path(bwd_sites, "review_net_train"), per_path(fwd_sites, "review_net_scst"),
+            per_path(bwd_sites, "review_net_scst")) != (per_batch, per_step, per_step,
+                                                        *per_iter):
+        raise AssertionError("models: ReviewNet's sites do not add up to its launches")
+    rows = check_attention_kernel(torch, aa, fwd_sites, (torch.float32, torch.bfloat16))
+    bwd_rows = check_attention_backward(torch, aa, bwd_sites, (torch.float32, torch.bfloat16))
+    driven = {name: drive_model(torch, aa, name, model, scorer, card)
+              for name, model in models.items()}
+    log(f"models: phase 9 in {time.perf_counter() - t0:.2f} s")
+    return rows, bwd_rows, driven
+
+
+def models_sums(rows, bwd_rows, driven):
+    """Phase 9's entries of the kernels JSON: the forward and backward
+    site sums per ReviewNet path (serving and XE in bf16, SCST in f32), and
+    each kernel's launches per model and path from the counters of its
+    runs."""
+    def sums(site_rows, path, dtype):
+        out = path_sums([r for r in site_rows if r["dtype"] == dtype], path)
+        return dict(out, dtype=dtype)
+
+    fwd = {p: sums(rows, p, dt) for p, dt in (("review_net_serve", "bfloat16"),
+                                              ("review_net_train", "bfloat16"),
+                                              ("review_net_scst", "float32"))}
+    bwd = {p: sums(bwd_rows, p, dt) for p, dt in (("review_net_train", "bfloat16"),
+                                                  ("review_net_scst", "float32"))}
+    model_fwd, model_bwd = {}, {}
+    for name, d in driven.items():
+        model_fwd[f"{name}_serve"] = d["serve"]["launches"]
+        for path, run in (("train", d["xe"]), ("scst", d["scst"])):
+            model_fwd[f"{name}_{path}"] = run["launches"]["additive_attention_fwd"]
+            model_bwd[f"{name}_{path}"] = run["launches"]["additive_attention_bwd"]
+    return fwd, bwd, model_fwd, model_bwd
+
+
 def path_sums(site_rows, path):
     """ms, plain_ms and bound_ms summed over the launches of one path (one
     beam-3 batch, one train step or one SCST iteration), and bound / ms of
@@ -1768,6 +1971,9 @@ def main():
     drv_rows, drv_bwd_rows = check_driver_sites(torch, aa, recorder)
     log(f"drivers: phase 8 in {time.perf_counter() - t0:.2f} s with its site checks")
 
+    # ---- 9. models
+    rn_rows, rn_bwd_rows, driven_models = models_phase(torch, aa, scorer, card)
+
     bf16 = [r for r in rows if r["dtype"] == "bfloat16"]
     bwd16 = [r for r in bwd_rows if r["dtype"] == "bfloat16"]
     serve, train_fwd = path_sums(bf16, "serve"), path_sums(bf16, "train")
@@ -1780,10 +1986,12 @@ def main():
                         (scst_bwd, "float32"), (eval_fwd, "bfloat16"),
                         (drivers_fwd, "bfloat16+float32"), (drivers_bwd, "bfloat16+float32")):
         sums["dtype"] = dtype
+    rn_fwd, rn_bwd, model_fwd, model_bwd = models_sums(rn_rows, rn_bwd_rows, driven_models)
     if (eval_fwd["launches"], drivers_fwd["launches"], drivers_bwd["launches"]) != (
             driven["eval"]["launches"][0], driver_fwd, driver_bwd):
         raise AssertionError("drivers: the checked sites do not add up to phase 8's launches")
-    rows, bwd_rows = rows + scst_rows + drv_rows, bwd_rows + scst_bwd_rows + drv_bwd_rows
+    rows = rows + scst_rows + drv_rows + rn_rows
+    bwd_rows = bwd_rows + scst_bwd_rows + drv_bwd_rows + rn_bwd_rows
     kernels = [{
         "name": "additive_attention_fwd",
         "route": "cuda",
@@ -1791,14 +1999,15 @@ def main():
         "replaces": "recurrent_fusion_network_tpu/ops/attention.py:46",
         "launches": launches["additive_attention"]
         + trained["launches"]["additive_attention_fwd"]
-        + scst_launches["additive_attention_fwd"] + driver_fwd,
+        + scst_launches["additive_attention_fwd"] + driver_fwd + sum(model_fwd.values()),
         # "eval": the eval CLI's run (one batch of 100 test images);
-        # "drivers": all of phase 8's CLI runs, their eval batches included
+        # "drivers": all of phase 8's CLI runs, their eval batches included;
+        # "<model>_<path>": phase 9's HTTP serving, XE and SCST runs
         "launches_by_path": {"serve": launches["additive_attention"],
                              "train": trained["launches"]["additive_attention_fwd"],
                              "scst": scst_launches["additive_attention_fwd"],
                              "eval": driven["eval"]["launches"][0],
-                             "drivers": driver_fwd},
+                             "drivers": driver_fwd, **model_fwd},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         # per beam-3 bf16 batch at B = 512: the sum over its 64 launches
         "ms": serve["ms"],
@@ -1808,10 +2017,12 @@ def main():
         "library_ms": None,  # no single PyTorch call computes additive attention
         # the same sums per bf16 train step at B = 512 (65 launches), per
         # f32 SCST iteration at B = 256 (130 launches), per bf16 eval batch
-        # of 100 images (the eval CLI's run) and over all of phase 8's
-        # launches at the shapes they had
+        # of 100 images (the eval CLI's run), over all of phase 8's
+        # launches at the shapes they had, and per ReviewNet beam-3 bf16
+        # batch at B = 512 (24), bf16 XE step at 500 rows (25) and f32 SCST
+        # iteration at B = 256 (50)
         "by_path": {"serve": serve, "train": train_fwd, "scst": scst_fwd, "eval": eval_fwd,
-                    "drivers": drivers_fwd},
+                    "drivers": drivers_fwd, **rn_fwd},
         "ok": all(r["ok"] and r["bitwise_repeat"] for r in rows),
         "sites": rows,
     }, {
@@ -1821,10 +2032,10 @@ def main():
         # the gradient of attend under jax.value_and_grad in make_train_step
         "replaces": "recurrent_fusion_network_tpu/ops/attention.py:46",
         "launches": trained["launches"]["additive_attention_bwd"]
-        + scst_launches["additive_attention_bwd"] + driver_bwd,
+        + scst_launches["additive_attention_bwd"] + driver_bwd + sum(model_bwd.values()),
         "launches_by_path": {"train": trained["launches"]["additive_attention_bwd"],
                              "scst": scst_launches["additive_attention_bwd"],
-                             "drivers": driver_bwd},
+                             "drivers": driver_bwd, **model_bwd},
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
         # errors relative to the largest plain value of each output
         "max_rel_err": max(r["max_rel_err"] for r in bwd_rows),
@@ -1832,7 +2043,7 @@ def main():
         "ms": train_bwd["ms"],
         "plain_ms": train_bwd["plain_ms"],
         "bound_ms": train_bwd["bound_ms"],
-        "by_path": {"train": train_bwd, "scst": scst_bwd, "drivers": drivers_bwd},
+        "by_path": {"train": train_bwd, "scst": scst_bwd, "drivers": drivers_bwd, **rn_bwd},
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in bwd16) else "operations",
         "library_ms": None,  # no single PyTorch call computes its gradient
         "ok": all(r["ok"] and r["bitwise_repeat"] for r in bwd_rows),
@@ -1843,6 +2054,7 @@ def main():
                                         "overlap_off": scst_off, **split,
                                         "peak_gb": peak_gb}))
     log("drivers summary: " + json.dumps(driven))
+    log("models summary: " + json.dumps(driven_models))
     for k in kernels:
         for path, sums in k["by_path"].items():
             log(f"kernel {k['name']} per {sums['dtype']} {path} path ({sums['launches']} "

@@ -24,9 +24,9 @@ from . import feat_registry
 
 def _defaults() -> dict:
     return dict(
-        # model options (the JAX package's defaults, but the port builds the
-        # RFNet model only; a checkpoint's saved opt overrides them)
-        caption_model="recurrent_fusion_model",
+        # model options (the JAX package's defaults; a checkpoint's saved
+        # opt overrides them)
+        caption_model="show_tell",
         rnn_size=512,
         input_encoding_size=512,
         att_hid_size=512,
@@ -46,9 +46,11 @@ def _defaults() -> dict:
         load_model_id="",
         rl_prefix=0,  # serve the rl_-prefixed (SCST) checkpoint
         rank=0,  # checkpoint rank (fleet seed index)
-        # serving
+        # serving; the training and eval CLIs' --port is the SPICE service's
+        # (metrics/spice.py), the serve CLI's the HTTP front end's (8080,
+        # parse_serve_opt)
         host="0.0.0.0",
-        port=8080,
+        port=8090,
         serve_batch_size=16,
         serve_depth=2,
         drain_timeout=30.0,
@@ -193,6 +195,14 @@ def _driver_defaults() -> dict:
 CHOICES = {"serve_dtype": ("bfloat16", "float32"), "dtype": ("float32", "bfloat16")}
 _RUNTIME = ("vocab_size", "seq_length", "current_lr", "ss_prob")
 
+# the port's own options, which the JAX package's do not have: a
+# checkpoint's saved opt leaves them out, as the JAX eval adopts every
+# saved key it does not override (``is_jax_key``)
+PORT_ONLY = frozenset({"device", "host", "rank", "rl_prefix", "serve_batch_size",
+                       "serve_depth", "drain_timeout", "serve_dtype", "eval_results_dir"})
+# keys the feature wiring adds to the options of both packages
+_WIRED = frozenset({"feat_array_info", "fc_feat_size", "att_feat_size", "att_num"})
+
 # flags the eval CLI (and the serve CLI) keep even when the checkpoint's
 # saved opt has them (JAX eval.py CLI_WINS, plus the port's device and the
 # serving flags)
@@ -208,6 +218,9 @@ CLI_WINS = {
     "device", "rl_prefix", "rank", "host", "serve_batch_size", "serve_depth",
     "drain_timeout", "serve_dtype", "eval_results_dir",
 }
+
+
+_JAX_KEYS = frozenset({**_defaults(), **_train_defaults(), **_driver_defaults()}) - PORT_ONLY
 
 
 class Options(SimpleNamespace):
@@ -227,10 +240,21 @@ def _add_flags(parser, defaults: dict) -> None:
         parser.add_argument(f"--{key}", type=kind, default=value, choices=CHOICES.get(key))
 
 
+def is_jax_key(key: str) -> bool:
+    """Whether the JAX package's options have ``key``: its flags, its
+    run-time keys, and the keys and ``input_*_dir`` paths of the feature
+    wiring."""
+    if key in PORT_ONLY:
+        return False
+    return (key in _JAX_KEYS or key in _WIRED
+            or (key.startswith(("input_fc", "input_att")) and key.endswith("_dir")))
+
+
 def parse_serve_opt(argv: Optional[Sequence[str]] = None) -> Options:
-    """The serve CLI's flags: the model, checkpoint and serving options."""
+    """The serve CLI's flags: the model, checkpoint and serving options;
+    --port is the HTTP front end's."""
     parser = argparse.ArgumentParser(description="RFNet caption serving (PyTorch)")
-    _add_flags(parser, _defaults())
+    _add_flags(parser, {**_defaults(), "port": 8080})
     return Options(**vars(parser.parse_args(argv)))
 
 

@@ -7,7 +7,12 @@ converted tree is the same tree with torch leaves:
   * untied review steps are stacked on a leading step axis (``review1[j]``:
     R0, ``review2``: S), and stage-II heads on M after it;
   * ``review1_keys`` / ``review2_keys`` exist only in the tied-keys profile
-    and ``value_proj`` only under ``low_rank_ctx``.
+    and ``value_proj`` only under ``low_rank_ctx``;
+  * ShowTell's ``core`` is a list of bias-free layers ``{"i2h": {"w"},
+    "h2h": {"w"}}``;
+  * ReviewNet's ``review`` cells are stacked on the step axis,
+    ``review_keys`` exists only with tied keys, and ``mos.latent`` (under
+    ``use_mos``) is stacked on the expert axis E.
 ``check_params`` holds a converted tree against the model's own layout, so
 a checkpoint of another architecture fails with the path that differs.
 

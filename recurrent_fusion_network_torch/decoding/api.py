@@ -26,9 +26,12 @@ class ModelSampleOut(NamedTuple):
 def model_sample(model, params, fc_feats, att_feats, *, beam_size: int = 1,
                  sample_max: bool = True, temperature: float = 1.0,
                  generator=None):
-    """Encode then decode a batch with the requested strategy."""
+    """Encode then decode a batch with the requested strategy. fc_feats /
+    att_feats: per-encoder sequences, or bare tensors for a single-encoder
+    model."""
     enc = model.encode(params, fc_feats, att_feats)
-    B = fc_feats[0].shape[0]
+    fc0 = fc_feats[0] if isinstance(fc_feats, (list, tuple)) else fc_feats
+    B = fc0.shape[0]
     V1 = model.vocab_size + 1
     if beam_size > 1:
         step = make_step_fn(model, params, tile_for_lanes(enc.memory, beam_size))

@@ -11,6 +11,8 @@ Endpoints:
                     encoder]} or binary npz (Content-Type application/x-npz
                     or zip magic) with arrays fc_0..fc_{M-1}, att_0..att_{M-1}
                     resp {"caption": str, "logprob": float}
+A single-encoder model (ShowTell, ReviewNet) takes one of each; ShowTell
+reads no attention features, so its att array may have any width.
 """
 
 from __future__ import annotations
@@ -75,6 +77,17 @@ def parse_features_payload(body: bytes, content_type: str = "",
             [np.asarray(a, np.float32) for a in req["att"]])
 
 
+def feature_shapes(model):
+    """-> (fc widths, att (A, D) shapes), one per encoder the model reads:
+    RFNet's M encoders or a single-encoder model's one. ShowTell reads no
+    attention features; (1, 1) stands in for them."""
+    if hasattr(model, "fc_feat_sizes"):
+        return list(model.fc_feat_sizes), list(zip(model.att_nums, model.att_feat_sizes))
+    if hasattr(model, "att_feat_size"):
+        return [model.fc_feat_size], [(model.att_num, model.att_feat_size)]
+    return [model.fc_feat_size], [(1, 1)]
+
+
 class CaptionService:
     """The batched decode server plus vocab decoding.
 
@@ -100,11 +113,15 @@ class CaptionService:
         self._decode = decode
         cast_dtype = next((x.dtype for x in tree_leaves(params)
                            if x.is_floating_point()), None)
+        self.single = not hasattr(model, "fc_feat_sizes")
+        if self.single:
+            # ShowTell reads no attention features: their width is free
+            feat_dims = ((model.fc_feat_size,), (getattr(model, "att_feat_size", None),))
+        else:
+            feat_dims = (tuple(model.fc_feat_sizes), tuple(model.att_feat_sizes))
         self.server = CaptionServer(
             decode, batch_size, device=self.device, depth=depth,
-            flush_interval=flush_interval,
-            feat_dims=(tuple(model.fc_feat_sizes), tuple(model.att_feat_sizes)),
-            cast_dtype=cast_dtype)
+            flush_interval=flush_interval, feat_dims=feat_dims, cast_dtype=cast_dtype)
 
     # ------------------------------------------------------------------ API
 
@@ -128,11 +145,10 @@ class CaptionService:
         """Run one full-size zero batch before serving traffic: builds the
         kernel library and warms the allocator, so the first live request
         does not pay for them."""
+        fc_dims, att_shapes = feature_shapes(self.model)
         B, dt = self.batch_size, self.server.cast_dtype
-        fcs = [torch.zeros((B, d), dtype=dt, device=self.device)
-               for d in self.model.fc_feat_sizes]
-        atts = [torch.zeros((B, n, d), dtype=dt, device=self.device)
-                for n, d in zip(self.model.att_nums, self.model.att_feat_sizes)]
+        fcs = [torch.zeros((B, d), dtype=dt, device=self.device) for d in fc_dims]
+        atts = [torch.zeros((B, n, d), dtype=dt, device=self.device) for n, d in att_shapes]
         tree_map(lambda x: x.cpu(), self._decode(fcs, atts))  # readback: done
 
     def close(self):

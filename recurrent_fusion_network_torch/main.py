@@ -4,8 +4,8 @@ Counterpart of the root ``main.py`` (the reference's main.py + train.py),
 with the same flags (``config.py``). Runs on the CUDA device unless
 ``--device cpu``:
 
-  python -m recurrent_fusion_network_torch.main --feature_type feat_array \\
-      --data_root data/features --input_json data/cocotalk.json \\
+  python -m recurrent_fusion_network_torch.main --caption_model recurrent_fusion_model \\
+      --feature_type feat_array --data_root data/features --input_json data/cocotalk.json \\
       --input_label_h5 data/cocotalk_label.h5 --batch_size 100 \\
       --save_checkpoint_every 3000 --checkpoint_path checkpoint --id rfnet
 

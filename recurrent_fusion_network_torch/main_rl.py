@@ -8,8 +8,8 @@ document-frequency pickle of ``prepro_ngrams``; where it does not exist the
 table is built from the train split's label matrix. Runs on the CUDA device
 unless ``--device cpu``:
 
-  python -m recurrent_fusion_network_torch.main_rl --feature_type feat_array \\
-      --start_from checkpoint --load_model_id rfnet --id rfnet \\
+  python -m recurrent_fusion_network_torch.main_rl --caption_model recurrent_fusion_model \\
+      --feature_type feat_array --start_from checkpoint --load_model_id rfnet --id rfnet \\
       --cider_df data/coco-train-idxs.p --batch_size 50
 """
 

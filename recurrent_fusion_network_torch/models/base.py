@@ -2,8 +2,12 @@
 
 Counterpart of ``recurrent_fusion_network_tpu/models/base.py`` for the
 pieces decoding and the XE train step need. ``remat_wrap`` is not ported
-(ROADMAP queue 1, M3 remainder): the port's forward raises for
+(ROADMAP queue 1, M3 remainder): the attention models' forward raises for
 ``use_remat``.
+
+Feature arguments: RFNet takes sequences of M per-encoder tensors; the
+single-encoder models (ShowTell, ReviewNet) take a tensor or a sequence of
+one (``single_encoder``), as the port's drivers hand every model lists.
 """
 
 from __future__ import annotations
@@ -48,6 +52,16 @@ def resolve_tied(opt) -> bool:
     return bool(tied)
 
 
+def single_encoder(feats):
+    """A single-encoder model's features: a tensor, or a sequence holding
+    one tensor (None passes through)."""
+    if isinstance(feats, (list, tuple)):
+        if len(feats) != 1:
+            raise ValueError(f"expected one encoder's features, got {len(feats)}")
+        return feats[0]
+    return feats
+
+
 def embed_tokens(params, tokens):
     return params["embed"][tokens]
 
@@ -89,13 +103,15 @@ def xe_decode(decode_logprobs_fn, embed_fn, state, seq_in, *, ss_prob=0.0,
 
 
 def setup(opt):
-    """Model factory. This slice of the port serves the RFNet model only."""
+    """Model factory."""
     from .recurrent_fusion import RecurrentFusionModel
+    from .review_net import ReviewNetModel
+    from .show_tell import ShowTellModel
 
+    if opt.caption_model == "show_tell":
+        return ShowTellModel.from_opt(opt)
+    if opt.caption_model == "review_net":
+        return ReviewNetModel.from_opt(opt)
     if opt.caption_model == "recurrent_fusion_model":
         return RecurrentFusionModel.from_opt(opt)
-    if opt.caption_model in ("show_tell", "review_net"):
-        raise NotImplementedError(
-            f"{opt.caption_model} is not ported yet (ROADMAP.md queue 1, "
-            "M8 other models)")
     raise ValueError(f"Caption model not supported: {opt.caption_model}")

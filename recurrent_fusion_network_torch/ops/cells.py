@@ -1,13 +1,15 @@
-"""Attention-LSTM single-step cells.
+"""Single-step LSTM cells.
 
-Counterpart of ``recurrent_fusion_network_tpu/ops/cells.py`` for the three
-cells RFNet runs, all sharing one gate layout (preactivation chunks
-[in | forget | out | g], sigmoid on the first 3R, tanh -- or maxout over two
-chunks -- on the last):
+Counterpart of ``recurrent_fusion_network_tpu/ops/cells.py``: the five
+cells, all sharing one gate layout (preactivation chunks [in | forget |
+out | g], sigmoid on the first 3R, tanh -- or maxout over two chunks -- on
+the last):
 
   att_lstm        decoder cell: i2h(x) + h2h(h) + z2h(z)
+  no_input_lstm   ReviewNet review cell: h2h(h) + z2h(z)
   fusion_lstm     stage-I cell: H2h(H) + z2h(z), H = every encoder's h
   multi_att_lstm  stage-II cell: h2h(h) + sum_i z_2_h[i](z_i) over M heads
+  plain_lstm      ShowTell's bias-free cell: i2h(x) + h2h(h), no attention
 
 Every attention read goes through ``ops/attention.py`` and so through the
 additive-attention kernels, forward and backward. State is a plain
@@ -18,10 +20,12 @@ next_h before it is returned as both the output and the recurrent state
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from . import attention
-from .initializers import apply_linear, linear, stack_params
+from .initializers import apply_linear, linear, stack_params, uniform
 
 
 def maybe_dropout(x, rate: float, generator, training: bool):
@@ -75,6 +79,33 @@ def att_lstm_step(params, xt, att_feats, state, *, keys=None, mask=None,
     z, _ = attention.attend(params["att"], pre_h, att_feats, keys=keys, mask=mask)
     sums = (apply_linear(params["i2h"], xt) + apply_linear(params["h2h"], pre_h)
             + apply_linear(params["z2h"], z))
+    next_h, next_c = lstm_update(sums, pre_c, rnn_size, maxout)
+    next_h = maybe_dropout(next_h, drop_rate, generator, training)
+    return next_h, (next_h, next_c)
+
+
+# ---------------------------------------------------------- no_input_lstm
+
+
+def no_input_lstm_init(generator, rnn_size, att_feat_size, att_hid_size, maxout=False,
+                       *, device):
+    """ReviewNet's review cell: constant bias fills, 0.0 on the attention and
+    -1.0 on h2h / z2h."""
+    g = _gate_dim(rnn_size, maxout)
+    return {
+        "att": attention.init(generator, rnn_size, att_feat_size, att_hid_size,
+                              bias=0.0, device=device),
+        "h2h": linear(generator, rnn_size, g, bias=-1.0, device=device),
+        "z2h": linear(generator, att_feat_size, g, bias=-1.0, device=device),
+    }
+
+
+def no_input_lstm_step(params, att_feats, state, *, keys=None, mask=None,
+                       rnn_size: int, maxout: bool = False, drop_rate: float = 0.0,
+                       generator=None, training: bool = False):
+    pre_h, pre_c = state
+    z, _ = attention.attend(params["att"], pre_h, att_feats, keys=keys, mask=mask)
+    sums = apply_linear(params["h2h"], pre_h) + apply_linear(params["z2h"], z)
     next_h, next_c = lstm_update(sums, pre_c, rnn_size, maxout)
     next_h = maybe_dropout(next_h, drop_rate, generator, training)
     return next_h, (next_h, next_c)
@@ -143,4 +174,33 @@ def multi_att_lstm_step(params, att_feats_stack, state, *, keys_stack=None,
     sums = sums + params["z_2_h"]["b"].sum(dim=0)
     next_h, next_c = lstm_update(sums, pre_c, rnn_size, maxout)
     next_h = maybe_dropout(next_h, drop_rate, generator, training)
+    return next_h, (next_h, next_c)
+
+
+# ------------------------------------------------------------- plain_lstm
+
+
+def plain_lstm_init(generator, input_size, rnn_size, *, device):
+    """A bias-free LSTM layer (ShowTell's core), both weights
+    U(-1/sqrt(R), 1/sqrt(R))."""
+    bound = 1.0 / math.sqrt(rnn_size)
+    return {"i2h": {"w": uniform(generator, (input_size, 4 * rnn_size), bound,
+                                 device=device)},
+            "h2h": {"w": uniform(generator, (rnn_size, 4 * rnn_size), bound,
+                                 device=device)}}
+
+
+def promoted_matmul(x, w):
+    """x @ w under the JAX package's dtype promotion: a bf16 operand meets an
+    f32 one in f32. ShowTell starts from an f32 zero state, so with bf16
+    weights its recurrent state and logits are f32, as in the JAX package."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
+def plain_lstm_step(params, xt, state, *, rnn_size: int):
+    pre_h, pre_c = state
+    sums = (promoted_matmul(xt, params["i2h"]["w"])
+            + promoted_matmul(pre_h, params["h2h"]["w"]))
+    next_h, next_c = lstm_update(sums, pre_c, rnn_size, maxout=False)
     return next_h, (next_h, next_c)

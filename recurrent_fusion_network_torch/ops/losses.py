@@ -5,6 +5,7 @@ Counterpart of ``recurrent_fusion_network_tpu/ops/losses.py``:
   language_model_loss       masked XE with optional label smoothing
   multilabel_margin_loss    torch.nn.MultiLabelMarginLoss semantics with the
                             JAX package's static target truncation
+  review_net_loss           XE + the reason loss of ReviewNet's one head
   review_net_ensemble_loss  XE + the reason loss averaged over RFNet's M+1
                             reason heads
   reward_loss               the SCST policy-gradient loss (optionally PPO's
@@ -56,6 +57,17 @@ def multilabel_margin_loss(x, y, *, max_targets=None):
     margin = margin * valid[:, :, None] * (1.0 - is_target)[:, None, :]
     per_sample = margin.sum(dim=(1, 2)) / C
     return per_sample.mean()
+
+
+def review_net_loss(log_prob, target, mask, top_pred, top_true, reason_weight, *,
+                    use_label_smoothing=False, label_smoothing_epsilon=0.1,
+                    max_targets=None):
+    """XE + the reason loss of one (B, C) head."""
+    xe = language_model_loss(log_prob, target, mask,
+                             use_label_smoothing=use_label_smoothing,
+                             label_smoothing_epsilon=label_smoothing_epsilon)
+    disc = multilabel_margin_loss(top_pred, top_true, max_targets=max_targets)
+    return xe + disc * reason_weight
 
 
 def review_net_ensemble_loss(log_prob, target, mask, top_pred_list, top_true,

@@ -59,8 +59,6 @@ ARCH_KEYS = (
     "num_review_steps", "num_review_steps_0", "tied_att_keys",
     "low_rank_ctx", "maxout", "review_maxout", "fusion_maxout",
 )
-# ARCH_KEYS the port's options do not carry: the one value the port builds
-_ARCH_FIXED = {"rnn_type": "lstm", "num_layers": 1, "use_mos": 0}
 
 
 class _Unpickler(pickle.Unpickler):
@@ -161,7 +159,7 @@ def assert_arch_matches(opt, saved_opt: dict) -> None:
     """Raise where ``opt`` and a checkpoint's saved opt disagree on a key
     that fixes the parameter tree (keys the saved opt lacks are skipped)."""
     for key in ARCH_KEYS:
-        ours = getattr(opt, key, _ARCH_FIXED.get(key))
+        ours = getattr(opt, key, None)
         if key == "tied_att_keys":
             ours = int(resolve_tied(opt))  # -1 = auto, as the JAX options resolve it
         if key in saved_opt and saved_opt[key] != ours:

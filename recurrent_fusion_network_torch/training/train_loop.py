@@ -24,6 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..config import is_jax_key
 from ..convert import (check_params, opt_state_from_jax, opt_state_to_jax, params_from_jax,
                        params_to_jax)
 from ..data.pinned import device_batch
@@ -115,9 +116,11 @@ def restore_generator(generator, infos) -> None:
 
 
 def snapshot_opt(opt) -> dict:
-    """The opt dict a checkpoint keeps: tied_att_keys resolved to 0 / 1,
-    as the JAX package's loader compares it with its CLI's."""
-    saved = dict(vars(opt))
+    """The opt dict a checkpoint keeps: the keys the JAX package's options
+    have (``config.is_jax_key``; the JAX eval adopts every saved key it
+    does not override), tied_att_keys resolved to 0 / 1 as the JAX
+    package's loader compares it with its CLI's."""
+    saved = {k: v for k, v in vars(opt).items() if is_jax_key(k)}
     saved["tied_att_keys"] = int(resolve_tied(opt))
     return saved
 

@@ -350,7 +350,8 @@ def test_sigterm_saves_a_triple_and_the_run_resumes(tmp_path):
                                                             for i in (3, 4)]
 
 
-TINY_FLAGS = ["--device", "cpu", "--feature_type", "synthetic", "--rnn_size", "16",
+TINY_FLAGS = ["--device", "cpu", "--feature_type", "synthetic",
+              "--caption_model", "recurrent_fusion_model", "--rnn_size", "16",
               "--input_encoding_size", "16", "--att_hid_size", "16", "--num_review_steps", "2",
               "--num_review_steps_0", "2", "--batch_size", "4", "--seq_per_img", "2"]
 
@@ -411,3 +412,73 @@ def test_options_snapshot_pickles_for_both_packages(tmp_path):
     with open(tmp_path / "infos_o_0.pkl", "rb") as f:
         got = pickle.load(f)["opt"]
     assert got["feat_array_info"] == jopt.feat_array_info
+
+
+# the port's flags the JAX package's parse_opt does not have, each with the
+# reason it has them; every flag both have takes the same default
+PORT_ONLY_FLAGS = {
+    "device": "entry points run on CUDA unless --device cpu",
+    "host": "the serve CLI's HTTP address (the JAX root serve.py's own parser)",
+    "rank": "the checkpoint rank the eval and serve CLIs load",
+    "rl_prefix": "eval and serve load the rl_ (SCST) triple",
+    "serve_batch_size": "the serve CLI's batch", "serve_depth": "batches in flight",
+    "drain_timeout": "the serve CLI's SIGTERM drain",
+    "serve_dtype": "the serve CLI's weights' dtype",
+    "eval_results_dir": "where eval_split writes its per-image metric JSONs",
+}
+
+
+def test_parse_opt_defaults_equal_the_jax_packages():
+    """Every flag both packages' parse_opt([]) have takes the same default:
+    --port is the SPICE service's 8090 and --caption_model is show_tell;
+    the serve CLI's --port, its HTTP front end's, is 8080."""
+    from recurrent_fusion_network_tpu.config import parse_opt as j_parse
+
+    topt, jopt = vars(t_config.parse_opt([])), vars(j_parse([]))
+    assert set(topt) - set(jopt) == set(PORT_ONLY_FLAGS) == t_config.PORT_ONLY
+    assert set(jopt) <= set(topt)
+    differ = {k: (topt[k], jopt[k]) for k in jopt if k != "feat_array_info" and topt[k] != jopt[k]}
+    assert differ == {}
+    assert [dict(e) for e in topt["feat_array_info"]] == [dict(e) for e in jopt["feat_array_info"]]
+    assert topt["port"] == 8090 and topt["caption_model"] == "show_tell"
+    assert t_config.parse_serve_opt([]).port == 8080
+
+
+def test_a_port_triples_saved_opt_holds_the_jax_keys_only(xe_runs, tmp_path):
+    """The saved opt of a port triple (a feat_array run) and a port opt
+    snapshot of a registry encoder (with its input_*_dir paths) have
+    exactly the keys of the JAX package's options for the same flags."""
+    from recurrent_fusion_network_tpu.config import parse_opt as j_parse
+
+    tmp = xe_runs[0]
+    _, infos = t_ckpt.load_checkpoint(str(tmp / "port"), "run", 0, best=False)
+    jopt = j_parse(["--feature_type", "feat_array", "--data_root", str(tmp_path)])
+    assert set(infos["opt"]) == set(vars(jopt))
+    flags = ["--feature_type", "inception_v3", "--data_root", str(tmp_path)]
+    saved = snapshot_opt(t_config.parse_opt(["--device", "cpu"] + flags))
+    assert set(saved) == set(vars(j_parse(flags)))
+    assert not set(saved) & t_config.PORT_ONLY
+
+
+def test_jax_eval_of_a_port_triple_writes_under_eval_results(xe_runs, tmp_path,
+                                                             monkeypatch, capsys):
+    """The JAX eval CLI on a port-written triple (whose training run wrote
+    its eval JSONs elsewhere) writes its per-image metric JSONs where it
+    would for its own triple: eval_results under the working directory."""
+    import importlib.util
+    import sys
+
+    tmp = xe_runs[0]
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "eval.py")
+    spec = importlib.util.spec_from_file_location("jax_eval_cli", path)
+    cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cli)
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(sys, "argv", [
+        "eval.py", "--model_path", str(tmp / "port"), "--load_model_id", "run",
+        "--eval_split", "val", "--val_images_use", "4", "--batch_size", "4",
+        "--seq_per_img", "2", "--synthetic_features", "1"])
+    cli.main()
+    assert "CIDEr: " in capsys.readouterr().out
+    written = os.listdir(tmp_path / "eval_results")
+    assert written and all(f.endswith(".json") for f in written)

@@ -121,14 +121,31 @@ def test_rl_masks_reward_the_eos_step():
     assert mask.tolist() == [[1, 1, 0], [1, 1, 1], [1, 0, 0]]
 
 
-@pytest.mark.parametrize("name, err", [("show_tell", NotImplementedError),
-                                       ("review_net", NotImplementedError),
-                                       ("unknown", ValueError)])
-def test_rl_criterion_takes_the_rfnet_model_only(name, err):
+@pytest.mark.parametrize("name", ["show_tell", "review_net", "unknown"])
+def test_rl_criterion_takes_the_rfnet_model_only(name):
+    """Every model's SCST criterion equals the JAX package's, loss and
+    gradients (ShowTell: the policy-gradient loss alone; ReviewNet: plus
+    its one reason head), with PPO; an unknown model is a ValueError."""
     from recurrent_fusion_network_torch.config import Options
+    from recurrent_fusion_network_tpu.config import Options as JaxOptions
 
-    with pytest.raises(err, match="M8" if err is NotImplementedError else "not supported"):
-        t_rl_crit(Options(caption_model=name))
+    kw = dict(caption_model=name, use_ppo=1, ppo_clip=0.1, entropy_reg=0.05,
+              reason_weight=0.7, seq_length=3)
+    if name == "unknown":
+        with pytest.raises(ValueError, match="not supported"):
+            t_rl_crit(Options(**kw))
+        return
+    lp_all, seq, slp, old, reward, heads, top = _rl_loss_inputs()
+    jcrit = j_rl_crit(JaxOptions(feature_type="synthetic", **kw))
+    jl, (jg_slp, jg_all) = jax.value_and_grad(
+        lambda a, b: jcrit(a, seq, reward, b, heads[:1], top, old), argnums=(0, 1))(slp, lp_all)
+    tslp, tall = _t(slp).requires_grad_(), _t(lp_all).requires_grad_()
+    tl = t_rl_crit(Options(**kw))(tslp, _t(seq), _t(reward), tall, [_t(heads[0])], _t(top),
+                                  _t(old))
+    tl.backward()
+    _close(tl, jl, rtol=LOSS_RTOL, atol=0)
+    _close(tslp.grad, jg_slp, rtol=LOSS_RTOL, atol=1e-7)
+    _close(tall.grad, jg_all, rtol=LOSS_RTOL, atol=1e-7)
 
 
 # --------------------------------------------------------- CIDEr-D rewards

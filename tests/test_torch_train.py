@@ -481,12 +481,22 @@ def test_train_resumes_a_jax_checkpoint_on_the_jax_trajectory(tmp_path):
     check_params(TorchRFNet.from_opt(topt2), opt_state_from_jax(saved).nu, name="nu")
 
 
-@pytest.mark.parametrize("name, err", [("show_tell", NotImplementedError),
-                                       ("review_net", NotImplementedError),
-                                       ("unknown", ValueError)])
-def test_criterion_takes_the_rfnet_model_only(name, err):
-    with pytest.raises(err):
-        t_crit(TorchOptions(caption_model=name))
+@pytest.mark.parametrize("name", ["show_tell", "review_net", "unknown"])
+def test_criterion_takes_the_rfnet_model_only(name):
+    """Every model's XE criterion equals the JAX package's (ShowTell: the
+    XE alone; ReviewNet: plus its one reason head); an unknown model is a
+    ValueError."""
+    kw = dict(caption_model=name, use_label_smoothing=1, reason_weight=0.7, seq_length=3)
+    if name == "unknown":
+        with pytest.raises(ValueError, match="not supported"):
+            t_crit(TorchOptions(**kw))
+        return
+    lp, target, mask, heads, top = _loss_inputs()
+    labels = np.concatenate([np.zeros((4, 1), np.int64), target], 1)
+    masks = np.concatenate([np.ones((4, 1), np.float32), mask], 1)
+    want = j_crit(JaxOptions(feature_type="synthetic", **kw))(lp, labels, masks, heads[:1], top)
+    got = t_crit(TorchOptions(**kw))(_t(lp), _t(labels), _t(masks), [_t(heads[0])], _t(top))
+    _close(got, want)
 
 
 def test_arch_check_resolves_auto_tied_keys():
@@ -494,11 +504,12 @@ def test_arch_check_resolves_auto_tied_keys():
 
     saved = {"caption_model": "recurrent_fusion_model", "rnn_type": "lstm",
              "num_layers": 1, "use_mos": 0, "tied_att_keys": 1, "rnn_size": 512}
-    assert_arch_matches(TorchOptions(tied_att_keys=-1), saved)
+    rfnet = dict(caption_model="recurrent_fusion_model")
+    assert_arch_matches(TorchOptions(tied_att_keys=-1, **rfnet), saved)
     with pytest.raises(ValueError, match="tied_att_keys"):
-        assert_arch_matches(TorchOptions(tied_att_keys=-1, reference_parity=1), saved)
+        assert_arch_matches(TorchOptions(tied_att_keys=-1, reference_parity=1, **rfnet), saved)
     with pytest.raises(ValueError, match="rnn_size"):
-        assert_arch_matches(TorchOptions(tied_att_keys=1, rnn_size=16), saved)
+        assert_arch_matches(TorchOptions(tied_att_keys=1, rnn_size=16, **rfnet), saved)
 
 
 def test_train_evaluates_and_writes_triples_at_boundaries_and_raises_for_remat(tmp_path):
