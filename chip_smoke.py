@@ -99,7 +99,26 @@ Phases, in order; any failure exits non-zero and prints no result line:
               The counters are reset just before and read just after each
               path: ReviewNet launches 8 + 16 forward per beam-3 batch,
               8 + 17 of each kernel per XE step and (8 + 17) x 2 + (8 + 17)
-              per SCST iteration, ShowTell none, none on the scalar path.
+              per SCST iteration, ShowTell none, none on the scalar path;
+ 10. fleets:  the multi-seed fleets and the mean-logit ensemble at flagship
+              width: a 2-member f32 ensemble of two seeded inits, whose
+              beam-3 tokens on 16 images with the kernel equal those with
+              the plain version; then on phase 8's data set (with flip
+              features of the 100 test images) main --n_seeds 4 (bf16, 100
+              images x 5, 11 steps, the boundary at 10), main_rl --n_seeds 4
+              warm-started from its best triples (f32, 51 images x 5,
+              iterations 11..16, the boundary at 16), eval_ensemble --n_ranks
+              4 --rl_prefix 1 --beam_size 3 --dtype bfloat16 on the test
+              images without, with and again without --eval_flip_ensemble 1,
+              and a 4-member bf16 B = 512 ensemble beside phase 5's solo
+              rate. Counters reset before and read after each run: 4 x (65 +
+              65) per XE iteration, 4 x (130 + 65) per SCST iteration, 129
+              per seed per eval batch, 4 x 64 per ensemble batch (8 x 64
+              under flip); iteration ms (median and quartiles of the fetch
+              gaps), ms per seed, the boundary's eval and triple seconds,
+              peak memory at S = 4 and the reckoned S = 8 peak. Phase 8's
+              and 10's attention shapes are then checked against the plain
+              versions as in phase 8.
 The line before the last is the kernels JSON, the last line the device JSON.
 """
 
@@ -1225,13 +1244,16 @@ CAPTION_WORDS = ("a the man woman dog cat ball park street red blue green small 
                  "grass water food plate bike car sign window door hat shirt").split()
 
 
-def write_driver_dataset(root, model, seed=0):
+def write_driver_dataset(root, model, seed=0, flip_split=None):
     """A data set at the flagship widths, in the files Dataset.from_files
     and the packed feature stores read: cocotalk.json (9,487 words; 300 /
     100 / 100 train / val / test images), npz labels (5 captions x 16
     tokens per image, half their words from a caption lexicon), a top-words
     pickle, and per registry encoder a packed/ store of original_fc.npy and
-    original_att.npy (seeded random f32). -> (argv of the data flags, GB)."""
+    original_att.npy (seeded random f32); with ``flip_split``, flip_fc.npy
+    and flip_att.npy too, whose rows of that split are written (the store
+    indexes every image's row; the others stay holes of the file).
+    -> (argv of the data flags, GB of features written)."""
     import pickle
 
     import numpy as np
@@ -1270,17 +1292,22 @@ def write_driver_dataset(root, model, seed=0):
         os.makedirs(store)
         with open(os.path.join(store, "ids.json"), "w") as f:
             json.dump(ids, f)
-        for kind, shape in (("fc", (info.fc_feat_size,)),
-                            ("att", (info.att_num, info.att_feat_size))):
-            arr = np.lib.format.open_memmap(os.path.join(store, f"original_{kind}.npy"),
-                                            mode="w+", dtype=np.float32,
-                                            shape=(len(ids),) + shape)
-            for lo in range(0, len(ids), 50):
-                arr[lo:lo + 50] = g.standard_normal((min(50, len(ids) - lo),) + shape,
-                                                    dtype=np.float32)
-            arr.flush()
-            n_bytes += arr.nbytes
-            del arr
+        variants = [("original", range(len(ids)))]
+        if flip_split:
+            variants.append(("flip", [i for i, im in enumerate(images)
+                                      if im["split"] == flip_split]))
+        for variant, rows in variants:
+            for kind, shape in (("fc", (info.fc_feat_size,)),
+                                ("att", (info.att_num, info.att_feat_size))):
+                arr = np.lib.format.open_memmap(
+                    os.path.join(store, f"{variant}_{kind}.npy"), mode="w+",
+                    dtype=np.float32, shape=(len(ids),) + shape)
+                for lo in range(rows[0], rows[-1] + 1, 50):  # contiguous rows
+                    hi = min(lo + 50, rows[-1] + 1)
+                    arr[lo:hi] = g.standard_normal((hi - lo,) + shape, dtype=np.float32)
+                arr.flush()
+                n_bytes += arr.nbytes * len(rows) // len(ids)
+                del arr
     argv = ["--caption_model", "recurrent_fusion_model", "--feature_type", "feat_array",
             "--data_root", data_root]
     for k, v in paths.items():
@@ -1430,19 +1457,21 @@ class ShapeRecorder:
             yield
 
 
-def check_driver_sites(torch, aa, recorder):
-    """Both kernels against their plain versions at every shape phase 8's
-    runs gave them, each in its own dtype, at the tolerances of phases 3
-    and 6 with a bitwise repeat; each row's launches per run and in all
-    ("drivers")."""
+def check_driver_sites(torch, aa, recorder, groups):
+    """Both kernels against their plain versions at every shape the
+    recorded runs (phases 8 and 10) gave them, each in its own dtype, at the
+    tolerances of phases 3 and 6 with a bitwise repeat; each row's launches
+    per run and summed over each group of ``groups`` ({name: run names})."""
+    def launches(runs):
+        return dict(runs, **{g: sum(runs.get(r, 0) for r in names)
+                             for g, names in groups.items()})
+
     fwd_rows, bwd_rows = [], []
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).replace("torch.", "")
-        fwd = [(f"drivers_G{G}_N{N}_A{A}_D{D}", G, N, A, D,
-                dict(runs, drivers=sum(runs.values())))
+        fwd = [(f"drivers_G{G}_N{N}_A{A}_D{D}", G, N, A, D, launches(runs))
                for (dt, G, N, A, D), runs in sorted(recorder.fwd.items()) if dt == dname]
-        bwd = [(f"drivers_G{G}_N{N}_A{A}_D{D}", G, N, A, D, need,
-                dict(runs, drivers=sum(runs.values())))
+        bwd = [(f"drivers_G{G}_N{N}_A{A}_D{D}", G, N, A, D, need, launches(runs))
                for (dt, G, N, A, D, need), runs in sorted(recorder.bwd.items()) if dt == dname]
         if fwd:
             fwd_rows += check_attention_kernel(torch, aa, fwd, (dtype,))
@@ -1511,6 +1540,7 @@ def run_driver(torch, cli, argv, counters, expect, what, recorder, run):
             mock.patch.object(eval_split, "language_eval", timed_lang), \
             mock.patch.object(Boundaries, "evaluate", probe.timed(Boundaries.evaluate)), \
             mock.patch.object(Boundaries, "save", probe.timed(Boundaries.save)), \
+            mock.patch.object(Boundaries, "write", probe.timed(Boundaries.write)), \
             recorder.run(run):
         out = cli.main(argv)
     torch.cuda.synchronize()
@@ -1856,6 +1886,303 @@ def models_sums(rows, bwd_rows, driven):
     return fwd, bwd, model_fwd, model_bwd
 
 
+# --------------------------------------------------------------- 10. fleets
+
+FLEET_SEEDS = 4
+FLEET_XE_EVERY = 10  # XE steps 0..10, the boundary at 10
+FLEET_RL_ITERS = 6  # SCST iterations from the XE best triples' iter 11, the boundary at 16
+FLEET_FREE_GB = 60  # data set ~2 GB; 4 XE triples, 4 rl_ triples and up to 4 rl_ best
+ENSEMBLE_TIMED = 4  # B = 512 ensemble batches timed
+PHASE10_RUNS = ("fleet_xe", "fleet_scst", "ensemble_eval", "ensemble_flip",
+                "ensemble_eval_repeat", "ensemble_throughput")
+
+
+def fleet_files(run_id, n_seeds, prefix=""):
+    """The rolling and best triples' names of every seed of a fleet."""
+    return sorted(f"{prefix}{kind}_{run_id}_{r}{tag}.pkl" for r in range(n_seeds)
+                  for kind in ("model", "optimizer", "infos") for tag in ("", "-best"))
+
+
+def host_state():
+    """(GB of host memory available, GB free on the build directory's disk)."""
+    import shutil
+
+    with open("/proc/meminfo") as f:
+        avail = next(int(line.split()[1]) for line in f if line.startswith("MemAvailable"))
+    return avail / 1e6, shutil.disk_usage(os.path.join(REPO, "build")).free / 1e9
+
+
+def check_ensemble_tokens(torch, model, aa, counters):
+    """A 2-member f32 flagship ensemble of two seeded random inits: its
+    beam-3 tokens on 16 images with the kernel equal those with the plain
+    version patched in, and the kernel's launches per batch are the
+    members' solo counts added up (2 x 64)."""
+    from unittest import mock
+
+    from recurrent_fusion_network_torch.decoding.ensemble import ensemble_sample
+    from recurrent_fusion_network_torch.ops import attention
+
+    members = [model.init_params(torch.Generator(device=DEVICE).manual_seed(30 + i),
+                                 device=DEVICE) for i in range(2)]
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    feats = [features(torch, model, 16, gen, torch.float32)] * 2
+    with torch.inference_mode():
+        reset_counters(counters)
+        k = ensemble_sample([model] * 2, members, feats, beam_size=BEAM)
+        launches = read_counters(counters, "ensemble check")
+        with mock.patch.object(attention, "additive_attention", aa.additive_attention_ref):
+            p = ensemble_sample([model] * 2, members, feats, beam_size=BEAM)
+    if not torch.equal(k.top_seq, p.top_seq) or launches != (2 * 64, 0):
+        raise AssertionError(f"ensemble: f32 beam-3 tokens differ between kernel and plain "
+                             f"paths, or launches {launches} != (128, 0)")
+    err = (k.top_p - p.top_p).abs().max().item()
+    if not torch.allclose(k.top_p, p.top_p, rtol=1e-4, atol=1e-4):
+        raise AssertionError(f"ensemble: f32 beam-3 top_p differ: {err}")
+    log(f"fleets: 2-member f32 flagship ensemble, beam 3, 16 images: tokens identical with "
+        f"and without the kernel, top_p max abs diff {err:.3e}, {launches[0]} launches")
+    return dict(tokens_equal=True, top_p_max_abs_diff=err, launches=launches)
+
+
+def state_gb(model):
+    """GB of one seed's f32 params and Adam moments on the card."""
+    from recurrent_fusion_network_torch.ops.initializers import tree_leaves
+
+    return 3 * 4 * sum(t.numel() for t in tree_leaves(model.init_params(None,
+                                                                         device="meta"))) / 1e9
+
+
+def fleet_summary(run, log_path, event, n_seeds, what, card):
+    """The fleet run's boundary split (from its fleet_val events) beside the
+    probe's iteration times; one log line."""
+    vals = jsonl(log_path, "fleet_val")
+    boundary, epilogue = vals[0], vals[-1]
+    run.update(boundary_eval_s=boundary["seconds"], boundary_write_s=boundary["save_seconds"],
+               epilogue_eval_s=epilogue["seconds"], ms_per_seed=run["step_ms"] / n_seeds,
+               train_events=len(jsonl(log_path, event)))
+    log(f"{what}: S={n_seeds} iteration {run['step_ms']:.2f} ms (median of "
+        f"{run['steady_gaps']} fetch gaps clear of the boundary), quartiles "
+        f"{[round(q, 2) for q in run['step_quartiles_ms']]}, {run['ms_per_seed']:.2f} ms per "
+        f"seed; boundary: eval {boundary['seconds']:.2f} s over {n_seeds} seeds, triples "
+        f"{boundary['save_seconds']:.2f} s; epilogue eval {epilogue['seconds']:.2f} s; "
+        f"launches {run['launches']}; wall "
+        f"{run['wall_s']:.2f} s; peak memory {run['peak_gb']:.2f} GB on {card}")
+    return run
+
+
+def run_ensemble_cli(torch, cli, argv, counters, expect, what, recorder, run):
+    """The ensemble CLI under the shape recorder with the counters reset just
+    before and read just after: wall seconds (checkpoint reads included),
+    the eval_ensemble call's seconds, captions/s, metrics finite."""
+    from unittest import mock
+
+    timed = {}
+    real = cli.eval_ensemble
+
+    def eval_ensemble(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real(*a, **kw)
+        finally:
+            torch.cuda.synchronize()
+            timed["eval_s"] = time.perf_counter() - t0
+
+    reset_counters(counters)
+    t0 = time.perf_counter()
+    with mock.patch.object(cli, "eval_ensemble", eval_ensemble), recorder.run(run):
+        preds, stats = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters(counters, what)
+    if launches != expect or recorder.totals(run) != expect or len(preds) != 100:
+        raise AssertionError(f"{what}: launches {launches}, by shape {recorder.totals(run)}, "
+                             f"expected {expect}; {len(preds)} predictions")
+    return dict(wall_s=wall, eval_s=timed["eval_s"], captions_per_s=len(preds) / timed["eval_s"],
+                stats=check_stats(stats, what), launches=launches)
+
+
+def ensemble_throughput(torch, model, counters, recorder, card, solo_rate):
+    """A 4-member bf16 ensemble (seeded random members) on B = 512 beam-3
+    batches through pipelined_map: captions/s beside phase 5's solo rate,
+    the counters reading 4 x 64 per batch."""
+    from recurrent_fusion_network_torch.decoding.ensemble import ensemble_sample
+    from recurrent_fusion_network_torch.decoding.serve import pipelined_map
+    from recurrent_fusion_network_torch.training.checkpoint import cast_tree
+
+    members = [cast_tree(model.init_params(torch.Generator(device=DEVICE).manual_seed(40 + i),
+                                           device=DEVICE), torch.bfloat16)
+               for i in range(FLEET_SEEDS)]
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    batches = [features(torch, model, BATCH, gen, torch.bfloat16) for _ in range(2)]
+
+    def decode(batch):
+        with torch.inference_mode():
+            return ensemble_sample([model] * FLEET_SEEDS, members, [batch] * FLEET_SEEDS,
+                                   beam_size=BEAM).seq
+
+    reset_counters(counters)
+    with recorder.run("ensemble_throughput"):
+        decode(batches[0]).cpu()  # warm the allocator and caches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = 0
+        for _, seq in pipelined_map(decode, (batches[i % 2] for i in range(ENSEMBLE_TIMED)),
+                                    depth=2):
+            n += seq.cpu().shape[0]
+        dt = time.perf_counter() - t0
+    launches = read_counters(counters, "ensemble throughput")
+    expect = (FLEET_SEEDS * 64 * (ENSEMBLE_TIMED + 1), 0)
+    if launches != expect or recorder.totals("ensemble_throughput") != expect:
+        raise AssertionError(f"ensemble throughput: launches {launches}, expected {expect}")
+    rate = n / dt
+    log(f"fleets: {FLEET_SEEDS}-member bf16 ensemble, beam 3, B={BATCH}: {rate:.1f} "
+        f"captions/s ({dt / ENSEMBLE_TIMED * 1e3:.2f} ms per batch over {ENSEMBLE_TIMED} "
+        f"batches through pipelined_map depth 2); the solo model {solo_rate:.1f} captions/s "
+        f"(phase 5); launches {launches} on {card}")
+    return dict(captions_per_s=rate, batch_ms=dt / ENSEMBLE_TIMED * 1e3,
+                solo_captions_per_s=solo_rate, launches=launches)
+
+
+def fleets(torch, aa, model, card, counters, recorder, solo_rate):
+    """Phase 10: the multi-seed fleets and the ensemble at flagship width.
+    The 2-member ensemble's kernel-vs-plain tokens; then, on a data set
+    written to disk (phase 8's, plus flip features of the test images), the
+    XE fleet (main --n_seeds 4, bf16, 100 images x 5, 11 steps, the boundary
+    at 10), the SCST fleet warm-started from its best triples (main_rl
+    --n_seeds 4, f32, 51 images x 5, 6 iterations, the boundary at 16), the
+    ensemble CLI over the 4 rl_ best triples (beam 3, bf16, the 100 test
+    images) without, with and again without --eval_flip_ensemble 1, and a
+    4-member B = 512 ensemble's captions/s. Counters reset before and read
+    after each run."""
+    import shutil
+    import tempfile
+
+    from recurrent_fusion_network_torch import eval_ensemble as ensemble_cli
+    from recurrent_fusion_network_torch import main as main_cli
+    from recurrent_fusion_network_torch import main_rl as main_rl_cli
+
+    t0 = time.perf_counter()
+    out = {"ensemble_check": check_ensemble_tokens(torch, model, aa, counters)}
+    torch.cuda.empty_cache()
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    mem_gb, free_gb = host_state()
+    if free_gb < FLEET_FREE_GB:
+        raise AssertionError(f"fleets: {free_gb:.1f} GB free under {build}, "
+                             f"{FLEET_FREE_GB} GB needed")
+    root = tempfile.mkdtemp(prefix="fleets_", dir=build)
+    try:
+        out.update(_fleets(torch, model, card, counters, recorder, root, main_cli,
+                           main_rl_cli, ensemble_cli))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["throughput"] = ensemble_throughput(torch, model, counters, recorder, card, solo_rate)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"fleets: phase 10 in {out['seconds']:.2f} s")
+    return out
+
+
+def _fleets(torch, model, card, counters, recorder, root, main_cli, main_rl_cli,
+            ensemble_cli):
+    from recurrent_fusion_network_torch.training.checkpoint import load_checkpoint
+
+    S, per_eval = FLEET_SEEDS, 65 + 64
+    t0 = time.perf_counter()
+    data_argv, data_gb = write_driver_dataset(root, model, seed=1, flip_split="test")
+    mem_gb, free_gb = host_state()
+    log(f"fleets: data set of {data_gb:.2f} GB of features (with the test images' flip "
+        f"features) written in {time.perf_counter() - t0:.2f} s; {free_gb:.1f} GB free on "
+        f"disk, {mem_gb:.1f} GB of host memory available")
+    ck = os.path.join(root, "checkpoint")
+    results = os.path.join(root, "eval_results")
+    common = data_argv + ["--device", DEVICE, "--checkpoint_path", ck, "--eval_results_dir",
+                          results, "--val_images_use", "100", "--beam_size", "3",
+                          "--language_eval", "1", "--seed", "0", "--losses_log_every", "5",
+                          "--n_seeds", str(S), "--id", "fleet"]
+    out, reckon = {}, state_gb(model)
+
+    # XE fleet: steps 0..10, the boundary at 10, the epilogue eval at 11
+    # on the same params (it writes nothing: no seed improves on itself)
+    steps, log_xe = FLEET_XE_EVERY + 1, os.path.join(root, "fleet_xe.jsonl")
+    res, xe = run_driver(
+        torch, main_cli, common + ["--dtype", "bfloat16", "--batch_size", "100",
+                                   "--seq_per_img", "5", "--save_checkpoint_every",
+                                   str(FLEET_XE_EVERY), "--max_iterations", str(steps),
+                                   "--json_log", log_xe],
+        counters, (S * (65 * steps + 2 * per_eval), S * 65 * steps), "fleets XE", recorder,
+        "fleet_xe")
+    if sorted(os.listdir(ck)) != fleet_files("fleet", S) or res["iter"] != steps:
+        raise AssertionError(f"fleets XE: files {sorted(os.listdir(ck))}, iter {res['iter']}")
+    for r in range(S):
+        _, saved = load_checkpoint(ck, "fleet", r, best=True)
+        if saved["iter"] != steps or saved["opt"]["tied_att_keys"] != 1:
+            raise AssertionError(f"fleets XE seed {r} best infos: iter {saved['iter']}")
+    losses = [[h[i] for i in sorted(h)] for h in res["loss_histories"]]
+    if not all(math.isfinite(x) for h in losses for x in h):
+        raise AssertionError(f"fleets XE losses {losses}")
+    del res
+    stats = [check_stats(m, f"fleets XE seed {r} eval")
+             for r, m in enumerate(jsonl(log_xe, "fleet_val")[0]["metrics"])]
+    out["xe"] = fleet_summary(xe, log_xe, "fleet_train", S, "fleets XE bf16 B=100x5", card)
+    out["xe"].update(losses=losses, stats=stats, state_gb_per_seed=reckon,
+                     reckoned_peak_gb_s8=xe["peak_gb"] + 4 * reckon)
+    mem_gb, free_gb = host_state()
+    log(f"fleets XE: losses per seed {[[round(x, 3) for x in h] for h in losses]}; one seed's "
+        f"f32 params and moments {reckon:.2f} GB, so S=8 would peak near "
+        f"{out['xe']['reckoned_peak_gb_s8']:.2f} GB; {free_gb:.1f} GB free on disk, "
+        f"{mem_gb:.1f} GB of host memory available")
+
+    # SCST fleet from the XE best triples (iteration 11 on): iterations
+    # 11..16, the boundary at 16 (two eval batches of 51 images), the
+    # epilogue eval at 17 on the same params
+    last = steps + FLEET_RL_ITERS
+    log_rl = os.path.join(root, "fleet_rl.jsonl")
+    res, rl = run_driver(
+        torch, main_rl_cli,
+        common + ["--batch_size", "51", "--seq_per_img", "5", "--dtype", "float32",
+                  "--start_from", ck, "--load_model_id", "fleet",
+                  "--save_checkpoint_every", str(last - 1), "--max_iterations", str(last),
+                  "--json_log", log_rl, "--cider_df", os.path.join(root, "absent.p")],
+        counters, (S * (130 * FLEET_RL_ITERS + 2 * 2 * per_eval), S * 65 * FLEET_RL_ITERS),
+        "fleets SCST", recorder, "fleet_scst")
+    rl_files = sorted(f for f in os.listdir(ck) if f.startswith("rl_"))
+    # the mean rewards of this run's logged iterations (the history holds
+    # the XE losses too)
+    rewards = [[h[i] for i in sorted(h) if i >= steps] for h in res["loss_histories"]]
+    if rl_files != fleet_files("fleet", S, "rl_") or res["iter"] != last \
+            or not all(h and all(map(math.isfinite, h)) for h in rewards):
+        raise AssertionError(f"fleets SCST: files {rl_files}, iter {res['iter']}, "
+                             f"rewards {rewards}")
+    out["scst"] = fleet_summary(rl, log_rl, "fleet_rl_train", S, "fleets SCST f32 B=51x5",
+                                card)
+    out["scst"].update(rewards=rewards, best_scores=res["cider_per_seed"],
+                       stats=[check_stats(m, f"fleets SCST seed {r} eval") for r, m in
+                              enumerate(jsonl(log_rl, "fleet_val")[0]["metrics"])])
+    del res
+    mem_gb, free_gb = host_state()
+    log(f"fleets SCST: rewards per seed {[[round(x, 3) for x in h] for h in rewards]}, "
+        f"best val scores {out['scst']['best_scores']}; {free_gb:.1f} GB free on disk, "
+        f"{mem_gb:.1f} GB of host memory available")
+
+    # the ensemble CLI over the 4 rl_ best triples, the 100 test images; the
+    # plain run again after the flip run, as the first pays one-time costs
+    argv = data_argv + ["--device", DEVICE, "--model_path", ck, "--model_ids", "fleet",
+                        "--n_ranks", str(S), "--rl_prefix", "1", "--beam_size", "3",
+                        "--dtype", "bfloat16", "--eval_split", "test", "--val_images_use",
+                        "100", "--batch_size", "100", "--eval_results_dir", results]
+    for run, flip in (("ensemble_eval", 0), ("ensemble_flip", 1), ("ensemble_eval_repeat", 0)):
+        out[run] = run_ensemble_cli(torch, ensemble_cli,
+                                    argv + ["--eval_flip_ensemble", str(flip)], counters,
+                                    ((1 + flip) * S * 64, 0), f"fleets {run}", recorder, run)
+        e = out[run]
+        log(f"fleets {run} (beam 3, bf16, {S} members, 100 test images, flip {flip}): wall "
+            f"{e['wall_s']:.2f} s with the checkpoint reads, eval {e['eval_s']:.2f} s, "
+            f"{e['captions_per_s']:.1f} captions/s; metrics {e['stats']}; launches "
+            f"{e['launches']} on {card}")
+    return out
+
+
+
 def path_sums(site_rows, path):
     """ms, plain_ms and bound_ms summed over the launches of one path (one
     beam-3 batch, one train step or one SCST iteration), and bound / ms of
@@ -1919,7 +2246,7 @@ def main():
     launches, _ = serve_over_http(torch, model, params, [aa])
 
     # ---- 5. throughput
-    throughput(torch, model, params, card)
+    solo_rate, _, _ = throughput(torch, model, params, card)
     del params
     torch.cuda.empty_cache()
 
@@ -1968,11 +2295,24 @@ def main():
     driver_runs = [driven["xe"], driven["scst_overlap_1"], driven["scst_overlap_0"]]
     driver_fwd = sum(r["launches"][0] for r in driver_runs) + driven["eval"]["launches"][0]
     driver_bwd = sum(r["launches"][1] for r in driver_runs)
-    drv_rows, drv_bwd_rows = check_driver_sites(torch, aa, recorder)
-    log(f"drivers: phase 8 in {time.perf_counter() - t0:.2f} s with its site checks")
 
     # ---- 9. models
     rn_rows, rn_bwd_rows, driven_models = models_phase(torch, aa, scorer, card)
+    torch.cuda.empty_cache()
+
+    # ---- 10. fleets and the ensemble
+    fleet = fleets(torch, aa, model, card, [aa], recorder, solo_rate)
+    fleet_launches = {run: recorder.totals(run) for run in PHASE10_RUNS}
+    fleet_fwd = sum(f for f, _ in fleet_launches.values())
+    fleet_bwd = sum(b for _, b in fleet_launches.values())
+
+    # both kernels against their plain versions at every shape of phases 8 and 10
+    t0 = time.perf_counter()
+    drv_rows, drv_bwd_rows = check_driver_sites(
+        torch, aa, recorder, {"drivers": ("xe", "eval", "scst_overlap_1", "scst_overlap_0"),
+                              "fleets": PHASE10_RUNS})
+    log(f"drivers and fleets: {len(recorder.fwd)} forward and {len(recorder.bwd)} backward "
+        f"shapes checked against the plain versions in {time.perf_counter() - t0:.2f} s")
 
     bf16 = [r for r in rows if r["dtype"] == "bfloat16"]
     bwd16 = [r for r in bwd_rows if r["dtype"] == "bfloat16"]
@@ -1981,15 +2321,27 @@ def main():
     scst_fwd, scst_bwd = path_sums(scst_rows, "scst"), path_sums(scst_bwd_rows, "scst")
     eval_fwd = path_sums(drv_rows, "eval")
     drivers_fwd, drivers_bwd = path_sums(drv_rows, "drivers"), path_sums(drv_bwd_rows, "drivers")
+    # per phase-10 run: the XE fleet and the SCST fleet (whole runs, their
+    # evals included), the ensemble CLI's batch (one batch of 100 test images,
+    # twice under flip) and the 4-member B = 512 ensemble (5 batches)
+    fleet_fwd_sums = {run: path_sums(drv_rows, run) for run in PHASE10_RUNS}
+    fleet_bwd_sums = {run: path_sums(drv_bwd_rows, run) for run in ("fleet_xe", "fleet_scst")}
     for sums, dtype in ((serve, "bfloat16"), (train_fwd, "bfloat16"),
                         (train_bwd, "bfloat16"), (scst_fwd, "float32"),
                         (scst_bwd, "float32"), (eval_fwd, "bfloat16"),
-                        (drivers_fwd, "bfloat16+float32"), (drivers_bwd, "bfloat16+float32")):
+                        (drivers_fwd, "bfloat16+float32"), (drivers_bwd, "bfloat16+float32"),
+                        *((fleet_fwd_sums[r], "float32" if r == "fleet_scst" else "bfloat16")
+                          for r in PHASE10_RUNS),
+                        (fleet_bwd_sums["fleet_xe"], "bfloat16"),
+                        (fleet_bwd_sums["fleet_scst"], "float32")):
         sums["dtype"] = dtype
     rn_fwd, rn_bwd, model_fwd, model_bwd = models_sums(rn_rows, rn_bwd_rows, driven_models)
     if (eval_fwd["launches"], drivers_fwd["launches"], drivers_bwd["launches"]) != (
             driven["eval"]["launches"][0], driver_fwd, driver_bwd):
         raise AssertionError("drivers: the checked sites do not add up to phase 8's launches")
+    if (path_sums(drv_rows, "fleets")["launches"], path_sums(drv_bwd_rows, "fleets")["launches"]) \
+            != (fleet_fwd, fleet_bwd):
+        raise AssertionError("fleets: the checked sites do not add up to phase 10's launches")
     rows = rows + scst_rows + drv_rows + rn_rows
     bwd_rows = bwd_rows + scst_bwd_rows + drv_bwd_rows + rn_bwd_rows
     kernels = [{
@@ -1999,15 +2351,20 @@ def main():
         "replaces": "recurrent_fusion_network_tpu/ops/attention.py:46",
         "launches": launches["additive_attention"]
         + trained["launches"]["additive_attention_fwd"]
-        + scst_launches["additive_attention_fwd"] + driver_fwd + sum(model_fwd.values()),
+        + scst_launches["additive_attention_fwd"] + driver_fwd + sum(model_fwd.values())
+        + fleet_fwd,
         # "eval": the eval CLI's run (one batch of 100 test images);
         # "drivers": all of phase 8's CLI runs, their eval batches included;
-        # "<model>_<path>": phase 9's HTTP serving, XE and SCST runs
+        # "<model>_<path>": phase 9's HTTP serving, XE and SCST runs;
+        # phase 10's runs: the XE and SCST fleets (their evals included),
+        # the ensemble CLI without, with and again without flip, the B = 512
+        # ensemble
         "launches_by_path": {"serve": launches["additive_attention"],
                              "train": trained["launches"]["additive_attention_fwd"],
                              "scst": scst_launches["additive_attention_fwd"],
                              "eval": driven["eval"]["launches"][0],
-                             "drivers": driver_fwd, **model_fwd},
+                             "drivers": driver_fwd, **model_fwd,
+                             **{run: f for run, (f, _) in fleet_launches.items()}},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         # per beam-3 bf16 batch at B = 512: the sum over its 64 launches
         "ms": serve["ms"],
@@ -2022,7 +2379,7 @@ def main():
         # batch at B = 512 (24), bf16 XE step at 500 rows (25) and f32 SCST
         # iteration at B = 256 (50)
         "by_path": {"serve": serve, "train": train_fwd, "scst": scst_fwd, "eval": eval_fwd,
-                    "drivers": drivers_fwd, **rn_fwd},
+                    "drivers": drivers_fwd, **rn_fwd, **fleet_fwd_sums},
         "ok": all(r["ok"] and r["bitwise_repeat"] for r in rows),
         "sites": rows,
     }, {
@@ -2032,10 +2389,13 @@ def main():
         # the gradient of attend under jax.value_and_grad in make_train_step
         "replaces": "recurrent_fusion_network_tpu/ops/attention.py:46",
         "launches": trained["launches"]["additive_attention_bwd"]
-        + scst_launches["additive_attention_bwd"] + driver_bwd + sum(model_bwd.values()),
+        + scst_launches["additive_attention_bwd"] + driver_bwd + sum(model_bwd.values())
+        + fleet_bwd,
         "launches_by_path": {"train": trained["launches"]["additive_attention_bwd"],
                              "scst": scst_launches["additive_attention_bwd"],
-                             "drivers": driver_bwd, **model_bwd},
+                             "drivers": driver_bwd, **model_bwd,
+                             "fleet_xe": fleet_launches["fleet_xe"][1],
+                             "fleet_scst": fleet_launches["fleet_scst"][1]},
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
         # errors relative to the largest plain value of each output
         "max_rel_err": max(r["max_rel_err"] for r in bwd_rows),
@@ -2043,7 +2403,8 @@ def main():
         "ms": train_bwd["ms"],
         "plain_ms": train_bwd["plain_ms"],
         "bound_ms": train_bwd["bound_ms"],
-        "by_path": {"train": train_bwd, "scst": scst_bwd, "drivers": drivers_bwd, **rn_bwd},
+        "by_path": {"train": train_bwd, "scst": scst_bwd, "drivers": drivers_bwd, **rn_bwd,
+                    **fleet_bwd_sums},
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in bwd16) else "operations",
         "library_ms": None,  # no single PyTorch call computes its gradient
         "ok": all(r["ok"] and r["bitwise_repeat"] for r in bwd_rows),
@@ -2055,6 +2416,7 @@ def main():
                                         "peak_gb": peak_gb}))
     log("drivers summary: " + json.dumps(driven))
     log("models summary: " + json.dumps(driven_models))
+    log("fleets summary: " + json.dumps(fleet))
     for k in kernels:
         for path, sums in k["by_path"].items():
             log(f"kernel {k['name']} per {sums['dtype']} {path} path ({sums['launches']} "

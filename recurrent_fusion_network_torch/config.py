@@ -289,7 +289,7 @@ def validate_options(opt) -> None:
 _UNPORTED = (
     ("checkpoint_backend", lambda v: v == "orbax", "orbax checkpointing", "M11"),
     ("profile_steps", lambda v: v > 0, "the TraceWindow profiler", "M11"),
-    ("n_seeds", lambda v: v > 1, "the multi-seed fleet", "M9"),
+    ("eval_ensemble_multi_gpu", lambda v: bool(v), "the multi-device ensemble eval", "M10"),
     ("num_dp_devices", lambda v: v > 1, "the data-parallel mesh", "M10"),
     ("num_mp_devices", lambda v: v > 1, "the dp x mp mesh", "M10"),
     ("async_opt", lambda v: bool(v), "the --async_opt data-parallel mapping", "M10"),

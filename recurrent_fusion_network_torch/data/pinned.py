@@ -199,16 +199,22 @@ def copier(device) -> SideStreamCopier:
     return _COPIERS[device]
 
 
+def batch_feats(data):
+    """The loader batch's features on the host: (fc list, att list), one
+    numpy array per encoder (the JAX ``batch_feats(..., as_numpy=True)``;
+    the port hands every model lists)."""
+    if "fc_feats_array" in data:
+        return list(data["fc_feats_array"]), list(data["att_feats_array"])
+    return [data["fc_feats"]], [data["att_feats"]]
+
+
 def device_batch(data, device, compute_dtype=None):
     """The loader's numpy batch dict -> (fc list, att list, labels, masks,
     top_words) on ``device``, features in the compute dtype. On a CUDA
     device every array is copied on the side stream from page-locked
     memory; on the CPU the tensors share the arrays' memory."""
     device = torch.device(device)
-    if "fc_feats_array" in data:
-        fcs, atts = list(data["fc_feats_array"]), list(data["att_feats_array"])
-    else:
-        fcs, atts = [data["fc_feats"]], [data["att_feats"]]
+    fcs, atts = batch_feats(data)
     host = fcs + atts + [data["labels"], data["masks"], data["top_words"]]
     if device.type == "cuda":
         out = copier(device).copy(host)

@@ -14,8 +14,10 @@ with the same flags (``config.py``). Runs on the CUDA device unless
       --feature_type synthetic --batch_size 8 --max_iterations 3 \\
       --save_checkpoint_every 2 --val_images_use 8 --checkpoint_path /tmp/ck --id smoke
 
-Multi-seed fleets (``--n_seeds``), meshes (``--num_dp_devices``,
-``--num_mp_devices``, ``--async_opt``) are not ported and raise.
+``--n_seeds N`` trains a fleet of N seeds in one process
+(``training/multi_seed.py``), its per-seed triples under ranks 0..N-1.
+Meshes (``--num_dp_devices``, ``--num_mp_devices``, ``--async_opt``) are
+not ported and raise.
 """
 
 from __future__ import annotations
@@ -23,16 +25,20 @@ from __future__ import annotations
 from .config import parse_opt
 from .data.build import build_loader
 from .device import resolve_device
+from .training.multi_seed import train_multi_seed
 from .training.train_loop import train
 
 
 def main(argv=None):
-    """Parse ``argv`` (default: the command line), train, return the infos."""
+    """Parse ``argv`` (default: the command line), train; returns the
+    infos (a fleet's result dict under ``--n_seeds`` > 1)."""
     opt = parse_opt(argv)
     resolve_device(opt.device)  # no CUDA and no --device cpu: raise first
     loader = build_loader(opt, synthetic=bool(opt.synthetic_features))
     try:
         max_it = opt.max_iterations if opt.max_iterations > 0 else None
+        if opt.n_seeds > 1:
+            return train_multi_seed(opt, loader, opt.n_seeds, max_iterations=max_it)
         return train(opt, loader, rank=0, max_iterations=max_it)
     finally:
         loader.close()

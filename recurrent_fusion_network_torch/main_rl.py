@@ -11,6 +11,9 @@ unless ``--device cpu``:
   python -m recurrent_fusion_network_torch.main_rl --caption_model recurrent_fusion_model \\
       --feature_type feat_array --start_from checkpoint --load_model_id rfnet --id rfnet \\
       --cider_df data/coco-train-idxs.p --batch_size 50
+
+``--n_seeds N`` trains an SCST fleet (``training/multi_seed.py``), seed r
+warm-started from rank r's XE best triple.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from .data.build import build_loader
 from .data.prepro_ngrams import compute_doc_freq
 from .device import resolve_device
 from .rewards.cider_d import CiderD
+from .training.multi_seed import train_multi_seed_rl
 from .training.train_rl_loop import train_rl
 
 
@@ -40,7 +44,8 @@ def make_scorer(path: str, loader, log_fn=print) -> CiderD:
 
 
 def main(argv=None):
-    """Parse ``argv`` (default: the command line), train, return the infos."""
+    """Parse ``argv`` (default: the command line), train; returns the
+    infos (a fleet's result dict under ``--n_seeds`` > 1)."""
     pre = argparse.ArgumentParser(add_help=False)
     pre.add_argument("--cider_df", type=str, default="data/coco-train-idxs.p")
     pre_args, rest = pre.parse_known_args(argv)
@@ -50,6 +55,9 @@ def main(argv=None):
     try:
         scorer = make_scorer(pre_args.cider_df, loader)
         max_it = opt.max_iterations if opt.max_iterations > 0 else None
+        if opt.n_seeds > 1:
+            return train_multi_seed_rl(opt, loader, scorer, opt.n_seeds,
+                                       max_iterations=max_it)
         return train_rl(opt, loader, scorer, rank=0, max_iterations=max_it)
     finally:
         loader.close()

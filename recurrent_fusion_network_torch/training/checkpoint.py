@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import os
 import pickle
+import shutil
 from typing import Any, Optional, Tuple
 
 from ..convert import JaxEmptyState, JaxScaleByAdamState, JaxTraceState
@@ -111,22 +112,53 @@ def save_checkpoint(checkpoint_path: str, run_id: str, rank: int, *, params,
     removes the tag's optimizer file: the triple is a unit, and a stale
     optimizer beside fresh params would resume with the wrong moments."""
     os.makedirs(checkpoint_path, exist_ok=True)
-
-    def dump(kind, obj, pickler):
-        path = _path(checkpoint_path, kind, run_id, rank, best, prefix)
-        with open(path + ".tmp", "wb") as f:
-            pickler(f, protocol=4).dump(obj)
-        os.replace(path + ".tmp", path)
-
-    dump("model", params, pickle.Pickler)
+    path = lambda kind: _path(checkpoint_path, kind, run_id, rank, best, prefix)  # noqa: E731
+    _dump(path("model"), params, pickle.Pickler)
     if opt_state is not None:
-        dump("optimizer", opt_state, _JaxNamePickler)
-    else:
-        stale = _path(checkpoint_path, "optimizer", run_id, rank, best, prefix)
-        if os.path.exists(stale):
-            os.remove(stale)
+        _dump(path("optimizer"), opt_state, _JaxNamePickler)
+    elif os.path.exists(path("optimizer")):
+        os.remove(path("optimizer"))
     if infos is not None:
-        dump("infos", infos, _JaxNamePickler)
+        save_infos(checkpoint_path, run_id, rank, infos, best=best, prefix=prefix)
+
+
+def _dump(path, obj, pickler):
+    with open(path + ".tmp", "wb") as f:
+        pickler(f, protocol=4).dump(obj)
+    os.replace(path + ".tmp", path)
+
+
+def save_infos(checkpoint_path: str, run_id: str, rank: int, infos: dict, *, best: bool,
+               prefix: str = "") -> None:
+    """Write the infos file of one tag (``.tmp``, then renamed)."""
+    os.makedirs(checkpoint_path, exist_ok=True)
+    _dump(_path(checkpoint_path, "infos", run_id, rank, best, prefix), infos, _JaxNamePickler)
+
+
+def link_triple(src_dir: str, src_id: str, rank: int, dst_dir: str, dst_id: str, *,
+                src_best: bool, dst_best: bool, src_prefix: str = "", dst_prefix: str = "",
+                kinds=("model", "optimizer", "infos")) -> None:
+    """Give one tag's files (of ``kinds``) the names of another tag as hard
+    links, or copies where the file system has none: the same bytes, not
+    written again. A kind the source tag lacks is removed at the
+    destination (a triple is a unit). Each name is linked to ``.tmp`` and
+    renamed over the old file, and a later write of either tag renames a
+    new file over its own name, so the other keeps its bytes."""
+    os.makedirs(dst_dir, exist_ok=True)
+    for kind in kinds:
+        src = _path(src_dir, kind, src_id, rank, src_best, src_prefix)
+        dst = _path(dst_dir, kind, dst_id, rank, dst_best, dst_prefix)
+        if not os.path.exists(src):
+            if os.path.exists(dst):
+                os.remove(dst)
+            continue
+        if os.path.exists(dst + ".tmp"):
+            os.remove(dst + ".tmp")
+        try:
+            os.link(src, dst + ".tmp")
+        except OSError:
+            shutil.copyfile(src, dst + ".tmp")
+        os.replace(dst + ".tmp", dst)
 
 
 def has_checkpoint(checkpoint_path: str, run_id: str, rank: int = 0, *,

@@ -33,8 +33,8 @@ from ..models import setup
 from ..models.base import resolve_tied
 from ..ops.initializers import tree_leaves, tree_map, tree_unflatten
 from ..utils.logging import JsonlLogger
-from .checkpoint import (assert_arch_matches, cast_tree, load_checkpoint, load_optimizer,
-                         save_checkpoint)
+from .checkpoint import (assert_arch_matches, cast_tree, link_triple, load_checkpoint,
+                         load_optimizer, save_checkpoint)
 from .criterion import make_criterion
 from .optim import (AdamState, SgdState, apply_updates, lr_for_epoch, make_optimizer,
                     ss_prob_for_epoch)
@@ -125,10 +125,21 @@ def snapshot_opt(opt) -> dict:
     return saved
 
 
+def to_host(params, opt_state, opt):
+    """(params, optimizer chain) as the numpy trees a triple holds: the
+    one copy from the device that the triples of a boundary share."""
+    return params_to_jax(params), opt_state_to_jax(opt_state, opt)
+
+
+def write_triple(opt, rank, host, infos, *, best, prefix=""):
+    """Write the triple of one tag from a ``to_host`` copy."""
+    params_np, chain = host
+    save_checkpoint(opt.checkpoint_path, opt.id, rank, params=params_np, opt_state=chain,
+                    infos=infos, best=best, prefix=prefix)
+
+
 def save_triple(opt, rank, params, opt_state, infos, *, best, prefix=""):
-    save_checkpoint(opt.checkpoint_path, opt.id, rank, params=params_to_jax(params),
-                    opt_state=opt_state_to_jax(opt_state, opt), infos=infos, best=best,
-                    prefix=prefix)
+    write_triple(opt, rank, to_host(params, opt_state, opt), infos, best=best, prefix=prefix)
 
 
 class Boundaries:
@@ -143,7 +154,9 @@ class Boundaries:
         self.opt, self.rank, self.prefix = opt, rank, prefix
         self.val_result_history = dict(infos.get("val_result_history", {}))
         self.best_val_score = infos.get("best_val_score") if opt.load_best_score else None
-        self.num_period_best = infos.get("num_period_best", 0) if resume_count else 0
+        # a JAX fleet's triple counts under no_improve
+        count = infos.get("num_period_best", infos.get("no_improve", 0))
+        self.num_period_best = int(count) if resume_count else 0
         self.current_score = 0.0
 
     def evaluate(self, model, params, loader, iteration):
@@ -187,11 +200,22 @@ class Boundaries:
             "vocab": loader.get_vocab(),
         }
 
+    def write(self, host, infos, *, best, rolling=False) -> None:
+        """The ``prefix``-ed triple of one tag from a ``to_host`` copy; with
+        ``best`` and ``rolling`` both tags, the rolling one written and the
+        best one hard-linked to it (the same bytes)."""
+        write_triple(self.opt, self.rank, host, infos, best=best and not rolling,
+                     prefix=self.prefix)
+        if best and rolling:
+            o = self.opt
+            link_triple(o.checkpoint_path, o.id, self.rank, o.checkpoint_path, o.id,
+                        src_best=False, dst_best=True, src_prefix=self.prefix,
+                        dst_prefix=self.prefix)
+
     def save(self, params, opt_state, infos, *, best=False) -> None:
-        """The triple and, at a new best, the best one beside it."""
-        for tag in (False, True) if best else (False,):
-            save_triple(self.opt, self.rank, params, opt_state, infos, best=tag,
-                        prefix=self.prefix)
+        """The triple and, at a new best, the best one beside it: one copy
+        of params and moments off the device, written once."""
+        self.write(to_host(params, opt_state, self.opt), infos, best=best, rolling=True)
 
 
 def state_fits(state, tx) -> bool:
@@ -200,20 +224,13 @@ def state_fits(state, tx) -> bool:
     return isinstance(state, SgdState) and (state.trace is None) == (not tx.momentum)
 
 
-def train(opt, loader, *, rank: int = 0, max_iterations: Optional[int] = None,
-          log_fn=print):
-    """Run XE training on ``opt.device`` (CUDA unless "cpu"). Returns the
-    infos dict of the last checkpoint snapshot (or {}) updated with iter,
-    epoch, the histories, final_params and final_opt_state."""
-    device = resolve_device(opt.device)
-    opt.vocab_size = loader.vocab_size
-    opt.seq_length = loader.seq_length
-    model = setup(opt)
-    # the port's random stream (dropout, scheduled sampling)
+def start_state(opt, model, tx, loader, rank, device):
+    """Rank ``rank``'s starting point of an XE run: -> (params, opt_state,
+    generator, infos). A fresh run draws the params from the rank's
+    generator (seed + rank; it then drives dropout and scheduled
+    sampling); with ``opt.start_from`` the rank's triple is resumed, its
+    random stream and the loader's state with it."""
     generator = torch.Generator(device=device).manual_seed(opt.seed + rank)
-
-    crit = make_criterion(opt)
-    tx = make_optimizer(opt)
     infos, opt_state = {}, None
     if opt.start_from is not None:
         params, opt_state, infos = resume(opt, model, loader, rank, device)
@@ -226,6 +243,21 @@ def train(opt, loader, *, rank: int = 0, max_iterations: Optional[int] = None,
         params = model.init_params(generator, device=device)
     if opt_state is None:
         opt_state = tx.init(params)
+    return params, opt_state, generator, infos
+
+
+def train(opt, loader, *, rank: int = 0, max_iterations: Optional[int] = None,
+          log_fn=print):
+    """Run XE training on ``opt.device`` (CUDA unless "cpu"). Returns the
+    infos dict of the last checkpoint snapshot (or {}) updated with iter,
+    epoch, the histories, final_params and final_opt_state."""
+    device = resolve_device(opt.device)
+    opt.vocab_size = loader.vocab_size
+    opt.seq_length = loader.seq_length
+    model = setup(opt)
+    crit = make_criterion(opt)
+    tx = make_optimizer(opt)
+    params, opt_state, generator, infos = start_state(opt, model, tx, loader, rank, device)
 
     iteration = infos.get("iter", 0)
     epoch = infos.get("epoch", 0)

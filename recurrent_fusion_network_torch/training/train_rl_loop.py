@@ -34,8 +34,9 @@ the next boundary. On a CUDA device batches are staged in page-locked
 memory and copied on a side stream (``data/pinned.py``), so under
 ``--rl_overlap 1`` the copy of batch k+1 runs while step k computes.
 
-Not ported: the trace window (M11), SPICE rewards (raises), multi-seed
-SCST fleets (M9) and the data-parallel mesh (M10). ``train_rl`` takes any
+The multi-seed SCST fleet runs these same functions seed by seed
+(``multi_seed.py``). Not ported: the trace window (M11), SPICE rewards
+(raises) and the data-parallel mesh (M10). ``train_rl`` takes any
 loader whose ``get_batch("train")`` returns the loader's batch dict, with
 ``gts``.
 """
@@ -128,6 +129,58 @@ def make_rl_step(model, rl_crit, tx):
     return step, old_logprobs
 
 
+def is_rl_resume(opt) -> bool:
+    """Whether the run resumes its own ``rl_`` triple (--rl_resume with
+    --start_from) rather than warm-starting from the XE best one."""
+    return bool(opt.rl_resume) and opt.start_from is not None
+
+
+def start_rl_state(opt, model, tx, loader, rank, device, log_fn=print):
+    """Rank ``rank``'s starting point of an SCST run: -> (params, opt_state,
+    generator, infos, rl_lr_base). With ``opt.start_from``: a warm start
+    from the rank's XE best triple (a fresh random stream, seed + rank) or,
+    under --rl_resume, a resume from its ``rl_`` triple (stream, rl_lr_base
+    and moments adopted); --load_lr derives the base from the XE lr history
+    and adopts the moments. Without it the params are drawn from the
+    rank's generator."""
+    generator = torch.Generator(device=device).manual_seed(opt.seed + rank)
+    rl_resume = is_rl_resume(opt)
+    infos, saved_state = {}, None
+    if opt.start_from is not None:
+        params, saved_state, infos = resume(
+            opt, model, loader, rank, device, best=not rl_resume,
+            prefix="rl_" if rl_resume else "", with_opt_state=bool(opt.load_lr or rl_resume))
+        if rl_resume:  # a warm start keeps its own fresh stream
+            restore_generator(generator, infos)
+    else:
+        params = model.init_params(generator, device=device)
+
+    rl_lr_base = opt.optim_rl_lr
+    lr_history = infos.get("lr_history", {})
+    if rl_resume:
+        if "rl_lr_base" in infos:
+            rl_lr_base = infos["rl_lr_base"]
+        else:
+            # the lr history holds the XE warm start's values too, so it
+            # cannot give the base back
+            log_fn("warning: rl checkpoint predates rl_lr_base; the original base is "
+                   "not recoverable from the (XE-contaminated) lr history; resuming "
+                   f"with --optim_rl_lr {rl_lr_base:.2e}")
+    elif opt.load_lr and lr_history:
+        rl_lr_base = min(lr_history.values()) / opt.optim_rl_lr_ratio
+
+    opt_state = None
+    if saved_state is not None:
+        if state_fits(saved_state, tx):
+            opt_state = saved_state
+        else:
+            log_fn(f"warning: the checkpoint's optimizer state {type(saved_state).__name__} "
+                   f"does not fit --optim {opt.optim}; re-initialized")
+    if opt_state is None:
+        opt_state = tx.init(params)
+    return params, opt_state, generator, infos, rl_lr_base
+
+
 def train_rl(opt, loader, cider_scorer: CiderD, *, rank: int = 0,
              max_iterations: Optional[int] = None, log_fn=print):
     """Run SCST training on ``opt.device`` (CUDA unless "cpu"). Returns the
@@ -149,18 +202,10 @@ def train_rl(opt, loader, cider_scorer: CiderD, *, rank: int = 0,
     opt.vocab_size = loader.vocab_size
     opt.seq_length = loader.seq_length
     model = setup(opt)
-    generator = torch.Generator(device=device).manual_seed(opt.seed + rank)
-
-    rl_resume = bool(opt.rl_resume) and opt.start_from is not None
-    infos, saved_state = {}, None
-    if opt.start_from is not None:
-        params, saved_state, infos = resume(
-            opt, model, loader, rank, device, best=not rl_resume,
-            prefix="rl_" if rl_resume else "", with_opt_state=bool(opt.load_lr or rl_resume))
-        if rl_resume:  # a warm start keeps its own fresh stream
-            restore_generator(generator, infos)
-    else:
-        params = model.init_params(generator, device=device)
+    rl_crit = make_rl_criterion(opt)
+    tx = make_optimizer(opt)
+    params, opt_state, generator, infos, rl_lr_base = start_rl_state(
+        opt, model, tx, loader, rank, device, log_fn)
 
     iteration = infos.get("iter", 0)
     epoch = infos.get("epoch", 0)
@@ -168,32 +213,7 @@ def train_rl(opt, loader, cider_scorer: CiderD, *, rank: int = 0,
     lr_history = dict(infos.get("lr_history", {}))
     train_loss_history = {}
     # a warm start measures against the XE best score but counts afresh
-    bounds = Boundaries(opt, rank, infos, prefix="rl_", resume_count=rl_resume)
-
-    rl_lr_base = opt.optim_rl_lr
-    if rl_resume:
-        if "rl_lr_base" in infos:
-            rl_lr_base = infos["rl_lr_base"]
-        else:
-            # the lr history holds the XE warm start's values too, so it
-            # cannot give the base back
-            log_fn("warning: rl checkpoint predates rl_lr_base; the original base is "
-                   "not recoverable from the (XE-contaminated) lr history; resuming "
-                   f"with --optim_rl_lr {rl_lr_base:.2e}")
-    elif opt.load_lr and lr_history:
-        rl_lr_base = min(lr_history.values()) / opt.optim_rl_lr_ratio
-
-    rl_crit = make_rl_criterion(opt)
-    tx = make_optimizer(opt)
-    opt_state = None
-    if saved_state is not None:
-        if state_fits(saved_state, tx):
-            opt_state = saved_state
-        else:
-            log_fn(f"warning: the checkpoint's optimizer state {type(saved_state).__name__} "
-                   f"does not fit --optim {opt.optim}; re-initialized")
-    if opt_state is None:
-        opt_state = tx.init(params)
+    bounds = Boundaries(opt, rank, infos, prefix="rl_", resume_count=is_rl_resume(opt))
     rollout_fn = make_rollout_fn(model)
     rl_step, old_logprobs_fn = make_rl_step(model, rl_crit, tx)
     jlog = JsonlLogger(opt.json_log or None)

@@ -53,11 +53,14 @@ def _tiny_model():
 
 
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda, tmp_path):
+    from recurrent_fusion_network_torch.config import Options
     from recurrent_fusion_network_torch import eval as eval_cli
-    from recurrent_fusion_network_torch import main, main_rl, serve
+    from recurrent_fusion_network_torch import eval_ensemble, main, main_rl, serve
     from recurrent_fusion_network_torch.decoding.http_serve import CaptionService
     from recurrent_fusion_network_torch.decoding.serve import CaptionServer
     from recurrent_fusion_network_torch.device import resolve_device
+    from recurrent_fusion_network_torch.training.multi_seed import (train_multi_seed,
+                                                                    train_multi_seed_rl)
 
     model = _tiny_model()
     params = model.init_params(torch.Generator().manual_seed(0), device="cpu")
@@ -71,6 +74,14 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda, tmp_path):
         lambda: eval_cli.main(["--model_path", str(tmp_path), "--load_model_id", "x"]),
         lambda: main.main(["--feature_type", "synthetic", "--input_json", str(tmp_path)]),
         lambda: main_rl.main(["--feature_type", "synthetic", "--start_from", str(tmp_path)]),
+        lambda: eval_ensemble.main(["--model_path", str(tmp_path), "--model_ids", "x",
+                                    "--n_ranks", "2"]),
+        lambda: main.main(["--feature_type", "synthetic", "--n_seeds", "2"]),
+        lambda: main_rl.main(["--feature_type", "synthetic", "--n_seeds", "2",
+                              "--start_from", str(tmp_path)]),
+        # the fleets themselves, before the (unread) loader is touched
+        lambda: train_multi_seed(Options(), None, 2),
+        lambda: train_multi_seed_rl(Options(), None, None, 2),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
