@@ -9,7 +9,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
               turns TF32 off for matmuls and cuDNN;
   2. build:   compiles every kernel of the port from csrc/ with nvcc for
               sm_90a (one nvcc per source, all started together) and, beside
-              them, the native CIDEr-D scorer (csrc/cider_d.cpp) with g++;
+              them, the host libraries with g++ into build/native/: the
+              CIDEr-D scorer (csrc/cider_d.cpp) and the sharded store's row
+              gather (csrc/feature_io.cpp);
   3. kernels: additive_attention_fwd against its plain PyTorch version at
               every shape the serving and training paths give it (flagship
               widths, B = 512: stage I, stage II with G = 5, the decoder at
@@ -116,9 +118,36 @@ Phases, in order; any failure exits non-zero and prints no result line:
               per seed per eval batch, 4 x 64 per ensemble batch (8 x 64
               under flip); iteration ms (median and quartiles of the fetch
               gaps), ms per seed, the boundary's eval and triple seconds,
-              peak memory at S = 4 and the reckoned S = 8 peak. Phase 8's
-              and 10's attention shapes are then checked against the plain
-              versions as in phase 8.
+              peak memory at S = 4 and the reckoned S = 8 peak;
+ 11. remat, optimizers, data front: (a) phase 6's B = 512 bf16 batch with
+              dropout at the flagship rates (0.3, scripts/train_recurrent_
+              fusion_model.sh) and ss_prob 0.3, 12 steps each without remat,
+              under --remat_policy full and under save_ctx (and one more
+              step without, the spread of two runs), from the same params
+              and generator state: the first step's loss and every grad
+              leaf against the run without remat (no further apart than the
+              two runs without it), launches per step exactly 65 + 65, 130 +
+              65 (the recompute launches each forward again) and 65 + 65
+              (save_ctx keeps the reads' outputs), step ms (median of the
+              last 10), the memory held at the end of the forward and the
+              forward's and the step's peaks; (b) 3 bf16 steps each of rmsprop
+              (momentum 0.9), adagrad (lr_decay 0.01) and adadelta: loss,
+              params and every state leaf finite, step ms, peak memory; (c)
+              the runbook's data front through the CLIs under build/: a
+              Karpathy JSON of 300 / 100 / 100 images x 5 captions whose
+              words are phase 8's 9,487 -> prepro_labels
+              --word_count_threshold 1 (exactly those words) ->
+              prepro_ngrams --karpathy_json -> seeded f32 packed stores of
+              the five encoders -> pack_to_shards (64 rows a shard); 3
+              train batches from the sharded stores (the native gather)
+              equal byte for byte to the packed stores', with the loader's
+              fetch ms of each; main (bf16, 100 x 5, --use_remat 1
+              --remat_policy save_ctx --optim rmsprop, 11 steps, the
+              boundary at 10) and main_rl --cider_df <prepro_ngrams' pickle>
+              --load_lr 1 from its best triple (f32, 51 x 5, iterations
+              11..16, the boundary at 16); exact launches, finite metrics.
+              Phase 8's, 10's and 11's CLI shapes are then checked against
+              the plain versions as in phase 8.
 The line before the last is the kernels JSON, the last line the device JSON.
 """
 
@@ -1258,8 +1287,6 @@ def write_driver_dataset(root, model, seed=0, flip_split=None):
 
     import numpy as np
 
-    from recurrent_fusion_network_torch import feat_registry
-
     g = np.random.default_rng(seed)
     words = CAPTION_WORDS + [f"w{i}" for i in range(len(CAPTION_WORDS), DRIVER_VOCAB)]
     images, ids = [], []
@@ -1286,6 +1313,26 @@ def write_driver_dataset(root, model, seed=0, flip_split=None):
     with open(paths["top_words_path"], "wb") as f:
         pickle.dump({"words": words[:model.top_words_count]}, f)
     data_root = os.path.join(root, "features")
+    flip_rows = None if not flip_split else [i for i, im in enumerate(images)
+                                             if im["split"] == flip_split]
+    n_bytes = write_packed_features(data_root, ids, g, flip_rows)
+    argv = ["--caption_model", "recurrent_fusion_model", "--feature_type", "feat_array",
+            "--data_root", data_root]
+    for k, v in paths.items():
+        argv += [f"--{k}", v]
+    return argv, n_bytes / 1e9
+
+
+def write_packed_features(data_root, ids, g, flip_rows=None):
+    """Per registry encoder a packed/ store under ``data_root`` of seeded
+    random f32 features (``g``, a numpy Generator): original_fc.npy and
+    original_att.npy, and with ``flip_rows`` flip_fc.npy and flip_att.npy,
+    of which those rows are written (the store indexes every image's row;
+    the others stay holes of the file). -> bytes written."""
+    import numpy as np
+
+    from recurrent_fusion_network_torch import feat_registry
+
     n_bytes = 0
     for info in feat_registry.feat_array_info(data_root):
         store = os.path.join(data_root, info.name, "packed")
@@ -1293,9 +1340,8 @@ def write_driver_dataset(root, model, seed=0, flip_split=None):
         with open(os.path.join(store, "ids.json"), "w") as f:
             json.dump(ids, f)
         variants = [("original", range(len(ids)))]
-        if flip_split:
-            variants.append(("flip", [i for i, im in enumerate(images)
-                                      if im["split"] == flip_split]))
+        if flip_rows:
+            variants.append(("flip", flip_rows))
         for variant, rows in variants:
             for kind, shape in (("fc", (info.fc_feat_size,)),
                                 ("att", (info.att_num, info.att_feat_size))):
@@ -1308,11 +1354,7 @@ def write_driver_dataset(root, model, seed=0, flip_split=None):
                 arr.flush()
                 n_bytes += arr.nbytes * len(rows) // len(ids)
                 del arr
-    argv = ["--caption_model", "recurrent_fusion_model", "--feature_type", "feat_array",
-            "--data_root", data_root]
-    for k, v in paths.items():
-        argv += [f"--{k}", v]
-    return argv, n_bytes / 1e9
+    return n_bytes
 
 
 class DriverProbe:
@@ -1335,10 +1377,12 @@ class DriverProbe:
         self.origin.record()
         self.fetches = []  # (host time, compute-stream event, copy index)
         self.boundaries = []  # host (start, end) of every eval and triple write
+        self.loaders = []  # the loaders the CLI built
 
     def wrap(self, build_loader):
         def build(*a, **kw):
             loader = build_loader(*a, **kw)
+            self.loaders.append(loader)
             real = loader.get_batch
 
             def get_batch(split, *args, **kwargs):
@@ -1549,8 +1593,10 @@ def run_driver(torch, cli, argv, counters, expect, what, recorder, run):
     if launches != expect or recorder.totals(run) != expect:
         raise AssertionError(f"{what}: launches (fwd, bwd) {launches}, by shape "
                              f"{recorder.totals(run)}, expected {expect}")
+    sources = [(type(src).__name__, getattr(src, "engine", None))
+               for loader in probe.loaders for src in loader.sources]
     return out, dict(probe.summary(), wall_s=wall, metric_s=metric_s, launches=launches,
-                     peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+                     peak_gb=torch.cuda.max_memory_allocated() / 1e9, sources=sources)
 
 
 def jsonl(path, event):
@@ -2183,6 +2229,444 @@ def _fleets(torch, model, card, counters, recorder, root, main_cli, main_rl_cli,
 
 
 
+# ------------------------------------------------- 11. remat, optimizers, data front
+
+# scripts/train_recurrent_fusion_model.sh's rates
+FLAGSHIP_DROPOUT = dict(drop_prob_lm=0.3, drop_prob_reason=0.3, drop_prob_fusion=0.3)
+REMAT_SS_PROB = 0.3
+REMAT_STEPS = 12  # per variant: the first (grads checked) and the second not timed
+REMAT_VARIANTS = (("off", False, "save_ctx", (65, 65)), ("off_again", False, "save_ctx", (65, 65)),
+                  ("full", True, "full", (130, 65)), ("save_ctx", True, "save_ctx", (65, 65)))
+OPTIMIZERS = {"rmsprop": dict(optim="rmsprop", optim_momentum=0.9),
+              "adagrad": dict(optim="adagrad", optim_lr_decay=0.01),
+              "adadelta": dict(optim="adadelta")}
+OPTIM_STEPS = 3
+FRONT_SHARD, FRONT_COMPARED = 64, 3  # shard rows; train batches compared and timed
+FRONT_XE_EVERY, FRONT_RL_ITERS = 10, 6
+FRONT_FREE_GB = 25  # 1.6 GB packed + 1.6 GB sharded, a 5.4 GB triple and an rl_ one
+PHASE11_RUNS = ("remat_off", "remat_full", "remat_save_ctx", "optimizers", "front_xe",
+                "front_scst")
+
+
+def tree_max_diff(torch, a, b):
+    """Largest |a - b| over two trees of CPU tensors of one layout."""
+    from recurrent_fusion_network_torch.ops.initializers import tree_leaves
+
+    return max((x - y).abs().max().item() for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def remat_phase(torch, aa, model, card):
+    """Phase 11 (a): bf16 XE steps on phase 6's B = 512 batch with dropout
+    at the flagship rates and ss_prob 0.3, without remat (twice: the run to
+    run spread), under remat "full" and under "save_ctx", each from the
+    same params and generator state: the first step's loss and grads
+    against the first run's, exact launches per step, step ms (median of
+    the last REMAT_STEPS - 2) and peak memory after the first step."""
+    from dataclasses import replace
+
+    from recurrent_fusion_network_torch.ops.initializers import tree_map
+    from recurrent_fusion_network_torch.training.criterion import make_criterion
+    from recurrent_fusion_network_torch.training.optim import make_optimizer
+    from recurrent_fusion_network_torch.training.train_loop import (device_batch,
+                                                                    make_train_step)
+
+    opt = train_opts(model, dtype="bfloat16", **FLAGSHIP_DROPOUT)
+    batch = device_batch(FixedBatchLoader(model, TRAIN_ROWS, 8).get_batch("train"), DEVICE,
+                         torch.bfloat16)
+    base = model.init_params(torch.Generator(device=DEVICE).manual_seed(11), device=DEVICE)
+    start = torch.Generator(device=DEVICE).manual_seed(13).get_state()
+    crit, held = make_criterion(opt), []
+
+    def crit_marked(*a):  # called at the end of the forward: what the backward keeps
+        held.append((torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()))
+        return crit(*a)
+
+    out, ref = {}, None
+    for name, remat, policy, per_step in REMAT_VARIANTS:
+        m = replace(model, use_remat=remat, remat_policy=policy, **FLAGSHIP_DROPOUT)
+        spy = GradSpy(make_optimizer(opt))
+        step = make_train_step(m, crit_marked, spy, torch.bfloat16)
+        params = tree_map(torch.clone, base)
+        state = spy.init(params)
+        gen = torch.Generator(device=DEVICE)
+        gen.set_state(start)
+        steps = 1 if name == "off_again" else REMAT_STEPS
+        losses, stamps, before = [], [], []
+        held.clear()
+        torch.cuda.synchronize()
+        reset_counters([aa])
+        peaks = []
+        for k in range(steps):
+            before.append(torch.cuda.memory_allocated())
+            if k:
+                peaks.append(torch.cuda.max_memory_allocated())
+                torch.cuda.reset_peak_memory_stats()
+            params, state, loss = step(params, state, *batch, LR, REMAT_SS_PROB, gen)
+            losses.append(loss.item())
+            stamps.append(time.perf_counter())
+            if k == 0:
+                grads = tree_map(lambda t: t.cpu(), spy.grads)
+                spy.grads, spy.update = None, spy.tx.update  # no more copies
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                stamps[0] = time.perf_counter()
+        launches = read_counters([aa], f"remat {name}")
+        if launches != (per_step[0] * steps, per_step[1] * steps):
+            raise AssertionError(f"remat {name}: launches (fwd, bwd) {launches} over {steps} "
+                                 f"steps, expected {per_step} per step")
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"remat {name}: losses {losses}")
+        row = dict(launches=launches, per_step=per_step, loss=losses[0], losses=losses)
+        if ref is None:
+            ref = (losses[0], grads)
+            check_grads(torch, grads, f"remat {name} bf16 first step")
+        else:
+            row.update(loss_diff=abs(losses[0] - ref[0]), grad_max_diff=tree_max_diff(
+                torch, ref[1], grads))
+        if steps > 2:
+            gaps = [(b - a) * 1e3 for a, b in zip(stamps[1:], stamps[2:])]
+            row.update(step_ms=statistics.median(gaps), step_quartiles_ms=statistics.quantiles(
+                gaps, n=4)[::2], steps_timed=len(gaps),
+                peak_gb=max(peaks[1:] + [torch.cuda.max_memory_allocated()]) / 1e9,
+                # allocated before the step (params, moments, the batch, the
+                # master copy the variants start from), how much more at the
+                # end of the forward (the activations the backward keeps),
+                # and the forward's own peak
+                start_gb=before[-1] / 1e9,
+                forward_held_gb=statistics.median(h - b for (h, _), b in zip(held[1:],
+                                                                             before[1:])) / 1e9,
+                forward_peak_gb=max(p for _, p in held[1:]) / 1e9)
+        out[name] = row
+        del spy, step, params, state, grads
+        torch.cuda.empty_cache()
+    spread = (out["off_again"]["loss_diff"], out["off_again"]["grad_max_diff"])
+    for name in ("full", "save_ctx"):
+        r = out[name]
+        log(f"remat {name}: first step's loss {r['loss']:.6f} (|diff| to off "
+            f"{r['loss_diff']:.3e}), largest |grad diff| to off {r['grad_max_diff']:.3e} "
+            f"(off run twice: {spread[0]:.3e} / {spread[1]:.3e}); step {r['step_ms']:.2f} ms "
+            f"(median of {r['steps_timed']}, quartiles "
+            f"{[round(q, 2) for q in r['step_quartiles_ms']]}) against off "
+            f"{out['off']['step_ms']:.2f} ms; held at the end of the forward "
+            f"{r['forward_held_gb']:.3f} GB against off {out['off']['forward_held_gb']:.3f} GB, "
+            f"peak of the forward {r['forward_peak_gb']:.2f} GB against off "
+            f"{out['off']['forward_peak_gb']:.2f} GB, of the step {r['peak_gb']:.2f} GB "
+            f"against off {out['off']['peak_gb']:.2f} GB (allocated before a step "
+            f"{r['start_gb']:.2f} GB); launches per step {r['per_step']} on {card}")
+        if r["loss_diff"] > spread[0] or r["grad_max_diff"] > spread[1]:
+            raise AssertionError(f"remat {name} differs from no remat beyond the spread of two "
+                                 f"runs without it: {r['loss_diff']}, {r['grad_max_diff']}")
+    del base, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def optimizer_phase(torch, aa, model, card):
+    """Phase 11 (b): OPTIM_STEPS bf16 XE steps of each of rmsprop (momentum
+    0.9), adagrad (lr_decay 0.01) and adadelta on phase 6's batch: loss,
+    params and every state leaf finite; launches; step ms and peak memory."""
+    from recurrent_fusion_network_torch.ops.initializers import tree_leaves
+    from recurrent_fusion_network_torch.training.criterion import make_criterion
+    from recurrent_fusion_network_torch.training.optim import make_optimizer
+    from recurrent_fusion_network_torch.training.train_loop import (device_batch,
+                                                                    make_train_step)
+
+    batch = device_batch(FixedBatchLoader(model, TRAIN_ROWS, 8).get_batch("train"), DEVICE,
+                         torch.bfloat16)
+    out, total = {}, (0, 0)
+    for name, over in OPTIMIZERS.items():
+        opt = train_opts(model, dtype="bfloat16", **over)
+        tx = make_optimizer(opt)
+        step = make_train_step(model, make_criterion(opt), tx, torch.bfloat16)
+        params = model.init_params(torch.Generator(device=DEVICE).manual_seed(17),
+                                   device=DEVICE)
+        state = tx.init(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters([aa])
+        losses, stamps = [], [time.perf_counter()]
+        for _ in range(OPTIM_STEPS):
+            params, state, loss = step(params, state, *batch, LR, 0.0, None)
+            losses.append(loss.item())
+            stamps.append(time.perf_counter())
+        launches = read_counters([aa], f"optimizer {name}")
+        total = (total[0] + launches[0], total[1] + launches[1])
+        leaves = [t for f in state if not isinstance(f, int) for t in tree_leaves(f)]
+        finite = (all(map(math.isfinite, losses))
+                  and all(bool(torch.isfinite(t).all()) for t in tree_leaves(params))
+                  and all(bool(torch.isfinite(t).all()) for t in leaves))
+        state_gb = sum(t.numel() * t.element_size() for t in leaves) / 1e9
+        gaps = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+        out[name] = dict(losses=losses, launches=launches, step_ms=gaps,
+                         peak_gb=torch.cuda.max_memory_allocated() / 1e9, state_gb=state_gb,
+                         state_entries=sum(t.numel() for t in leaves))
+        log(f"optimizer {name} bf16 B={TRAIN_ROWS}: losses {[round(x, 4) for x in losses]}, "
+            f"params and {len(leaves)} state leaves finite: {finite}; state "
+            f"{out[name]['state_entries']:,} f32 entries ({state_gb:.2f} GB); steps "
+            f"{[round(g, 2) for g in gaps]} ms; peak {out[name]['peak_gb']:.2f} GB; launches "
+            f"{launches} on {card}")
+        if not finite or launches != (65 * OPTIM_STEPS, 65 * OPTIM_STEPS):
+            raise AssertionError(f"optimizer {name}: finite {finite}, launches {launches}")
+        del step, params, state, leaves
+        torch.cuda.empty_cache()
+    out["launches"] = total
+    return out
+
+
+def write_karpathy(path, model, seed=0):
+    """A Karpathy-format dataset JSON of 300 / 100 / 100 train / val / test
+    images with 5 captions each of 8-20 tokens (some longer than the 16 the
+    labels keep), every one of phase 8's 9,487 words at least twice: so
+    prepro_labels --word_count_threshold 1 keeps them all and no UNK.
+    -> (image ids, the words)."""
+    import numpy as np
+
+    g = np.random.default_rng(seed)
+    words = CAPTION_WORDS + [f"w{i}" for i in range(len(CAPTION_WORDS), DRIVER_VOCAB)]
+    n_img = sum(DRIVER_IMAGES.values())
+    lengths = g.integers(8, 21, n_img * DRIVER_CAPS)
+    pool = np.array(words * 2 + list(g.choice(CAPTION_WORDS, int(lengths.sum())
+                                               - 2 * len(words))))
+    if len(pool) != lengths.sum():
+        raise AssertionError("write_karpathy: too few caption tokens for the vocabulary")
+    g.shuffle(pool)
+    cuts = np.cumsum(lengths)[:-1]
+    caps = [list(c) for c in np.split(pool, cuts)]
+    images, ids = [], []
+    for split, n in DRIVER_IMAGES.items():
+        for _ in range(n):
+            ids.append(100_000 + len(ids))
+            sents = [{"tokens": caps[k], "raw": " ".join(caps[k])}
+                     for k in range((len(ids) - 1) * DRIVER_CAPS, len(ids) * DRIVER_CAPS)]
+            images.append({"split": split, "filepath": f"{split}2014",
+                           "filename": f"{ids[-1]}.jpg", "cocoid": ids[-1],
+                           "sentences": sents})
+    with open(path, "w") as f:
+        json.dump({"images": images, "dataset": "coco"}, f)
+    return ids, words
+
+
+def same_batch(a, b):
+    """Two loader batch dicts equal key by key, arrays byte for byte."""
+    import numpy as np
+
+    if set(a) != set(b):
+        return False
+    for k in a:
+        x, y = a[k], b[k]
+        if isinstance(x, list) and x and isinstance(x[0], np.ndarray):
+            if len(x) != len(y) or not all(u.dtype == v.dtype and u.shape == v.shape
+                                           and u.tobytes() == v.tobytes()
+                                           for u, v in zip(x, y)):
+                return False
+        elif isinstance(x, np.ndarray):
+            if x.dtype != y.dtype or x.shape != y.shape or x.tobytes() != y.tobytes():
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def data_front(torch, model, card, counters, recorder):
+    """Phase 11 (c): the runbook's path from a caption corpus, through the
+    CLIs: Karpathy JSON -> prepro_labels -> prepro_ngrams --karpathy_json
+    -> sharded stores -> main (--use_remat 1 --remat_policy save_ctx --optim
+    rmsprop) -> main_rl --cider_df, on files written under build/ and
+    deleted when done."""
+    import shutil
+    import tempfile
+
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    free_gb = shutil.disk_usage(build).free / 1e9
+    if free_gb < FRONT_FREE_GB:
+        raise AssertionError(f"data front: {free_gb:.1f} GB free under {build}, "
+                             f"{FRONT_FREE_GB} GB needed")
+    root = tempfile.mkdtemp(prefix="front_", dir=build)
+    try:
+        return _data_front(torch, model, card, counters, recorder, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _data_front(torch, model, card, counters, recorder, root):
+    import pickle
+
+    import numpy as np
+
+    from recurrent_fusion_network_torch import feat_registry
+    from recurrent_fusion_network_torch import main as main_cli
+    from recurrent_fusion_network_torch import main_rl as main_rl_cli
+    from recurrent_fusion_network_torch.config import parse_opt
+    from recurrent_fusion_network_torch.data import prepro_labels, prepro_ngrams
+    from recurrent_fusion_network_torch.data.build import build_loader
+    from recurrent_fusion_network_torch.data.dataset import Dataset, PackedFeatureSource
+    from recurrent_fusion_network_torch.data.loader import DataLoader
+    from recurrent_fusion_network_torch.data.sharded import pack_to_shards
+
+    out = {}
+    t0 = time.perf_counter()
+    karpathy = os.path.join(root, "dataset_coco.json")
+    ids, words = write_karpathy(karpathy, model)
+    paths = {k: os.path.join(root, f) for k, f in (
+        ("input_json", "cocotalk.json"), ("input_label_h5", "cocotalk_label.npz"),
+        ("top_words_path", "vocab_train.pkl"), ("cider_df", "coco-train-idxs.p"))}
+    t1 = time.perf_counter()
+    prepro_labels.main(["--input_json", karpathy, "--output_json", paths["input_json"],
+                        "--output_labels", paths["input_label_h5"], "--output_top_words",
+                        paths["top_words_path"], "--word_count_threshold", "1"])
+    t2 = time.perf_counter()
+    prepro_ngrams.main(["--input_json", paths["input_json"], "--input_labels",
+                        paths["input_label_h5"], "--karpathy_json", karpathy, "--output_pkl",
+                        paths["cider_df"]])
+    t3 = time.perf_counter()
+    with open(paths["input_json"]) as f:
+        vocab = json.load(f)["ix_to_word"]
+    with open(paths["cider_df"], "rb") as f:
+        df = pickle.load(f)
+    if len(vocab) != DRIVER_VOCAB or set(vocab.values()) != set(words):
+        raise AssertionError(f"data front: prepro_labels gave {len(vocab)} words, not phase "
+                             f"8's {DRIVER_VOCAB}")
+    out.update(prepro_labels_s=t2 - t1, prepro_ngrams_s=t3 - t2, vocab=len(vocab),
+               df_ngrams=len(df["document_frequency"]), ref_len=df["ref_len"])
+    log(f"data front: Karpathy JSON of {len(ids)} images x {DRIVER_CAPS} captions written in "
+        f"{t1 - t0:.2f} s; prepro_labels {t2 - t1:.2f} s ({len(vocab)} words, no UNK); "
+        f"prepro_ngrams --karpathy_json {t3 - t2:.2f} s ({len(df['document_frequency']):,} "
+        f"n-grams, ref_len {df['ref_len']:.4f})")
+
+    data_root = os.path.join(root, "features")
+    t0 = time.perf_counter()
+    n_bytes = write_packed_features(data_root, ids, np.random.default_rng(0))
+    t1 = time.perf_counter()
+    shards = []
+    for info in feat_registry.feat_array_info(data_root):
+        src = pack_to_shards(os.path.join(data_root, info.name, "packed"),
+                             os.path.join(data_root, info.name, "sharded"),
+                             shard_size=FRONT_SHARD)
+        shards.append(len(src.shards))
+    t2 = time.perf_counter()
+    out.update(features_gb=n_bytes / 1e9, packed_write_s=t1 - t0, pack_to_shards_s=t2 - t1,
+               shards=shards)
+    log(f"data front: {n_bytes / 1e9:.2f} GB of packed features written in {t1 - t0:.2f} s, "
+        f"packed into sharded stores of {FRONT_SHARD} rows ({shards} shards) in "
+        f"{t2 - t1:.2f} s")
+
+    # the loader on the sharded stores (as the CLIs build it) against one on
+    # the packed stores beside them: the same batches, byte for byte
+    data_argv = ["--caption_model", "recurrent_fusion_model", "--feature_type", "feat_array",
+                 "--data_root", data_root] + [a for k in ("input_json", "input_label_h5",
+                                                         "top_words_path")
+                                              for a in (f"--{k}", paths[k])]
+    opt = parse_opt(data_argv + ["--device", DEVICE, "--batch_size", "100", "--seq_per_img",
+                                 "5", "--seed", "0"])
+    sharded = build_loader(opt, prefetch=False)
+    packed = DataLoader(opt, Dataset.from_files(opt.input_json, opt.input_label_h5,
+                                                opt.top_words_path, opt.top_words_count),
+                        [PackedFeatureSource(os.path.join(data_root, f["name"], "packed"))
+                         for f in opt.feat_array_info], prefetch=False)
+    fetch = {"sharded": [], "packed": []}
+    try:
+        if [s.engine for s in sharded.sources] != ["native"] * 5:
+            raise AssertionError(f"data front: sources {[type(s).__name__ for s in sharded.sources]} "
+                                 f"engines {[getattr(s, 'engine', None) for s in sharded.sources]}")
+        for k in range(FRONT_COMPARED):
+            batches = {}
+            for name in (("sharded", "packed") if k % 2 == 0 else ("packed", "sharded")):
+                t0 = time.perf_counter()
+                batches[name] = (sharded if name == "sharded" else packed).get_batch("train")
+                fetch[name].append((time.perf_counter() - t0) * 1e3)
+            if not same_batch(batches["sharded"], batches["packed"]):
+                raise AssertionError(f"data front: train batch {k} differs between the sharded "
+                                     f"and the packed stores")
+            del batches
+        gathers = [s.native_gathers for s in sharded.sources]
+        opened = [s.shards_opened for s in sharded.sources]
+    finally:
+        sharded.close()
+        packed.close()
+    if min(gathers) < FRONT_COMPARED:
+        raise AssertionError(f"data front: native gathers {gathers}")
+    out.update(fetch_ms=fetch, native_gathers=gathers, shards_opened=opened)
+    log(f"data front: {FRONT_COMPARED} train batches of 100 x 5 equal byte for byte from the "
+        f"sharded and the packed stores; loader fetch ms sharded "
+        f"{[round(x, 2) for x in fetch['sharded']]}, packed "
+        f"{[round(x, 2) for x in fetch['packed']]} (order alternated); native gathers per "
+        f"encoder {gathers}, shards opened {opened} on {card}")
+
+    ck = os.path.join(root, "checkpoint")
+    common = data_argv + ["--device", DEVICE, "--checkpoint_path", ck, "--eval_results_dir",
+                          os.path.join(root, "eval_results"), "--val_images_use", "100",
+                          "--beam_size", "3", "--language_eval", "1", "--seed", "0",
+                          "--losses_log_every", "5", "--use_remat", "1", "--remat_policy",
+                          "save_ctx", "--optim", "rmsprop"]
+    per_eval, steps = 65 + 64, FRONT_XE_EVERY + 1
+    log_xe = os.path.join(root, "xe.jsonl")
+    infos, xe = run_driver(
+        torch, main_cli, common + ["--dtype", "bfloat16", "--batch_size", "100",
+                                   "--seq_per_img", "5", "--save_checkpoint_every",
+                                   str(FRONT_XE_EVERY), "--max_iterations", str(steps),
+                                   "--id", "front", "--json_log", log_xe],
+        counters, (65 * steps + per_eval, 65 * steps), "data front XE", recorder, "front_xe")
+    [val] = jsonl(log_xe, "val")
+    losses = [infos["loss_history"][i] for i in sorted(infos["loss_history"])]
+    state = type(infos["final_opt_state"]).__name__
+    if state != "RmspropState" or not all(map(math.isfinite, losses)) \
+            or xe["sources"] != [("ShardedFeatureSource", "native")] * 5:
+        raise AssertionError(f"data front XE: state {state}, losses {losses}, sources "
+                             f"{xe['sources']}")
+    del infos
+    xe.update(stats=check_stats(val, "data front XE eval"), losses=losses,
+              eval_s=val["seconds"], triples_write_s=val["save_seconds"])
+    log(f"data front XE bf16 B=100x5 (remat save_ctx, rmsprop): steady step "
+        f"{xe['step_ms']:.2f} ms, quartiles {[round(q, 2) for q in xe['step_quartiles_ms']]} "
+        f"({xe['steady_gaps']} gaps); loader wait {xe['loader_wait_ms']:.2f} ms per fetch; "
+        f"losses {[round(x, 3) for x in losses]}; boundary eval {xe['eval_s']:.2f} s, triples "
+        f"{xe['triples_write_s']:.2f} s; metrics {xe['stats']}; launches {xe['launches']}; "
+        f"peak {xe['peak_gb']:.2f} GB on {card}")
+    out["xe"] = xe
+
+    last = steps + FRONT_RL_ITERS
+    log_rl = os.path.join(root, "rl.jsonl")
+    infos, rl = run_driver(
+        torch, main_rl_cli,
+        common + ["--batch_size", "51", "--seq_per_img", "5", "--dtype", "float32",
+                  "--start_from", ck, "--load_model_id", "front", "--id", "front",
+                  "--load_lr", "1", "--save_checkpoint_every", str(last - 1),
+                  "--max_iterations", str(last), "--json_log", log_rl,
+                  "--cider_df", paths["cider_df"]],
+        counters, (130 * FRONT_RL_ITERS + 2 * per_eval, 65 * FRONT_RL_ITERS),
+        "data front SCST", recorder, "front_scst")
+    [val] = jsonl(log_rl, "rl_val")
+    rewards = [e["avg_reward"] for e in jsonl(log_rl, "rl_train")]
+    state = type(infos["final_opt_state"]).__name__
+    if infos["iter"] != last or state != "RmspropState" or not rewards \
+            or not all(map(math.isfinite, rewards)):
+        raise AssertionError(f"data front SCST: iter {infos['iter']}, state {state}, rewards "
+                             f"{rewards}")
+    del infos
+    rl.update(stats=check_stats(val, "data front SCST eval"), rewards=rewards,
+              eval_s=val["seconds"])
+    log(f"data front SCST f32 B=51x5 from the XE best triple (--load_lr 1, --cider_df of "
+        f"prepro_ngrams): steady iteration {rl['step_ms']:.2f} ms, quartiles "
+        f"{[round(q, 2) for q in rl['step_quartiles_ms']]}; rewards "
+        f"{[round(x, 4) for x in rewards]}; metrics {rl['stats']}; launches {rl['launches']}; "
+        f"peak {rl['peak_gb']:.2f} GB on {card}")
+    out["scst"] = rl
+    return out
+
+
+def phase11(torch, aa, model, card, recorder):
+    """Phase 11: remat, the three optimizers, the data front."""
+    t0 = time.perf_counter()
+    out = {"remat": remat_phase(torch, aa, model, card)}
+    out["optimizers"] = optimizer_phase(torch, aa, model, card)
+    out["front"] = data_front(torch, model, card, [aa], recorder)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 11 in {out['seconds']:.2f} s")
+    return out
+
+
 def path_sums(site_rows, path):
     """ms, plain_ms and bound_ms summed over the launches of one path (one
     beam-3 batch, one train step or one SCST iteration), and bound / ms of
@@ -2211,16 +2695,19 @@ def main():
     # ---- 2. build
     from concurrent.futures import ThreadPoolExecutor
 
+    from recurrent_fusion_network_torch.data import native as feature_io
     from recurrent_fusion_network_torch.kernels import additive_attention as aa
     from recurrent_fusion_network_torch.kernels import build
     from recurrent_fusion_network_torch.rewards import native
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(1) as pool:  # g++ beside the nvcc processes
-        cider = pool.submit(native.build)
+    with ThreadPoolExecutor(2) as pool:  # g++ beside the nvcc processes
+        host = [pool.submit(lib.build) for lib in (native, feature_io)]
         logs = build.build_all()
-        cider.result()
-    log(f"build: {sorted(logs)} and {native.LIB.name} in {time.perf_counter() - t0:.2f} s")
+        for job in host:
+            job.result()
+    log(f"build: {sorted(logs)}, {native.LIB.name} and {feature_io.LIBRARY.path.name} in "
+        f"{time.perf_counter() - t0:.2f} s")
     for name, out in logs.items():
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
@@ -2305,19 +2792,46 @@ def main():
     fleet_launches = {run: recorder.totals(run) for run in PHASE10_RUNS}
     fleet_fwd = sum(f for f, _ in fleet_launches.values())
     fleet_bwd = sum(b for _, b in fleet_launches.values())
+    torch.cuda.empty_cache()
 
-    # both kernels against their plain versions at every shape of phases 8 and 10
+    # ---- 11. remat, the three optimizers, the data front
+    p11 = phase11(torch, aa, model, card, recorder)
+    remat = p11["remat"]
+    p11_launches = {
+        "remat_off": tuple(map(sum, zip(remat["off"]["launches"],
+                                        remat["off_again"]["launches"]))),
+        "remat_full": remat["full"]["launches"], "remat_save_ctx": remat["save_ctx"]["launches"],
+        "optimizers": p11["optimizers"]["launches"],
+        "front_xe": p11["front"]["xe"]["launches"], "front_scst": p11["front"]["scst"]["launches"]}
+    p11_fwd = sum(f for f, _ in p11_launches.values())
+    p11_bwd = sum(b for _, b in p11_launches.values())
+
+    # both kernels against their plain versions at every shape of phases 8,
+    # 10 and 11's CLI runs
     t0 = time.perf_counter()
     drv_rows, drv_bwd_rows = check_driver_sites(
         torch, aa, recorder, {"drivers": ("xe", "eval", "scst_overlap_1", "scst_overlap_0"),
-                              "fleets": PHASE10_RUNS})
-    log(f"drivers and fleets: {len(recorder.fwd)} forward and {len(recorder.bwd)} backward "
-        f"shapes checked against the plain versions in {time.perf_counter() - t0:.2f} s")
+                              "fleets": PHASE10_RUNS, "front": ("front_xe", "front_scst")})
+    log(f"drivers, fleets and data front: {len(recorder.fwd)} forward and "
+        f"{len(recorder.bwd)} backward shapes checked against the plain versions in "
+        f"{time.perf_counter() - t0:.2f} s")
 
     bf16 = [r for r in rows if r["dtype"] == "bfloat16"]
     bwd16 = [r for r in bwd_rows if r["dtype"] == "bfloat16"]
+    # phase 11's remat'd bf16 step at B = 512 has the train step's sites: "full"
+    # launches each forward twice (the recompute), "save_ctx" once
+    for r in bf16:
+        r["launches"].update(remat_full=2 * r["launches"].get("train", 0),
+                             remat_save_ctx=r["launches"].get("train", 0))
+    for r in bwd16:
+        r["launches"].update(remat_full=r["launches"].get("train", 0),
+                             remat_save_ctx=r["launches"].get("train", 0))
     serve, train_fwd = path_sums(bf16, "serve"), path_sums(bf16, "train")
     train_bwd = path_sums(bwd16, "train")
+    remat_fwd = {p: path_sums(bf16, p) for p in ("remat_full", "remat_save_ctx")}
+    remat_bwd = {p: path_sums(bwd16, p) for p in ("remat_full", "remat_save_ctx")}
+    front_fwd = {run: path_sums(drv_rows, run) for run in ("front_xe", "front_scst")}
+    front_bwd = {run: path_sums(drv_bwd_rows, run) for run in ("front_xe", "front_scst")}
     scst_fwd, scst_bwd = path_sums(scst_rows, "scst"), path_sums(scst_bwd_rows, "scst")
     eval_fwd = path_sums(drv_rows, "eval")
     drivers_fwd, drivers_bwd = path_sums(drv_rows, "drivers"), path_sums(drv_bwd_rows, "drivers")
@@ -2333,7 +2847,12 @@ def main():
                         *((fleet_fwd_sums[r], "float32" if r == "fleet_scst" else "bfloat16")
                           for r in PHASE10_RUNS),
                         (fleet_bwd_sums["fleet_xe"], "bfloat16"),
-                        (fleet_bwd_sums["fleet_scst"], "float32")):
+                        (fleet_bwd_sums["fleet_scst"], "float32"),
+                        *((x, "bfloat16") for x in (*remat_fwd.values(), *remat_bwd.values(),
+                                                    front_fwd["front_xe"],
+                                                    front_bwd["front_xe"])),
+                        (front_fwd["front_scst"], "float32"),
+                        (front_bwd["front_scst"], "float32")):
         sums["dtype"] = dtype
     rn_fwd, rn_bwd, model_fwd, model_bwd = models_sums(rn_rows, rn_bwd_rows, driven_models)
     if (eval_fwd["launches"], drivers_fwd["launches"], drivers_bwd["launches"]) != (
@@ -2342,6 +2861,14 @@ def main():
     if (path_sums(drv_rows, "fleets")["launches"], path_sums(drv_bwd_rows, "fleets")["launches"]) \
             != (fleet_fwd, fleet_bwd):
         raise AssertionError("fleets: the checked sites do not add up to phase 10's launches")
+    if (path_sums(drv_rows, "front")["launches"], path_sums(drv_bwd_rows, "front")["launches"]) \
+            != tuple(map(sum, zip(p11_launches["front_xe"], p11_launches["front_scst"]))):
+        raise AssertionError("data front: the checked sites do not add up to phase 11's launches")
+    for p in ("remat_full", "remat_save_ctx"):
+        steps = REMAT_STEPS
+        if (remat_fwd[p]["launches"] * steps, remat_bwd[p]["launches"] * steps) \
+                != p11_launches[p]:
+            raise AssertionError(f"{p}: the train sites do not add up to phase 11's launches")
     rows = rows + scst_rows + drv_rows + rn_rows
     bwd_rows = bwd_rows + scst_bwd_rows + drv_bwd_rows + rn_bwd_rows
     kernels = [{
@@ -2352,7 +2879,7 @@ def main():
         "launches": launches["additive_attention"]
         + trained["launches"]["additive_attention_fwd"]
         + scst_launches["additive_attention_fwd"] + driver_fwd + sum(model_fwd.values())
-        + fleet_fwd,
+        + fleet_fwd + p11_fwd,
         # "eval": the eval CLI's run (one batch of 100 test images);
         # "drivers": all of phase 8's CLI runs, their eval batches included;
         # "<model>_<path>": phase 9's HTTP serving, XE and SCST runs;
@@ -2364,7 +2891,8 @@ def main():
                              "scst": scst_launches["additive_attention_fwd"],
                              "eval": driven["eval"]["launches"][0],
                              "drivers": driver_fwd, **model_fwd,
-                             **{run: f for run, (f, _) in fleet_launches.items()}},
+                             **{run: f for run, (f, _) in fleet_launches.items()},
+                             **{run: f for run, (f, _) in p11_launches.items()}},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         # per beam-3 bf16 batch at B = 512: the sum over its 64 launches
         "ms": serve["ms"],
@@ -2378,8 +2906,12 @@ def main():
         # launches at the shapes they had, and per ReviewNet beam-3 bf16
         # batch at B = 512 (24), bf16 XE step at 500 rows (25) and f32 SCST
         # iteration at B = 256 (50)
+        # phase 11: per remat'd bf16 step at B = 512 (130 launches under
+        # "full", 65 under "save_ctx"), and over the data front's XE and
+        # SCST runs on the sharded stores
         "by_path": {"serve": serve, "train": train_fwd, "scst": scst_fwd, "eval": eval_fwd,
-                    "drivers": drivers_fwd, **rn_fwd, **fleet_fwd_sums},
+                    "drivers": drivers_fwd, **rn_fwd, **fleet_fwd_sums, **remat_fwd,
+                    **front_fwd},
         "ok": all(r["ok"] and r["bitwise_repeat"] for r in rows),
         "sites": rows,
     }, {
@@ -2390,12 +2922,13 @@ def main():
         "replaces": "recurrent_fusion_network_tpu/ops/attention.py:46",
         "launches": trained["launches"]["additive_attention_bwd"]
         + scst_launches["additive_attention_bwd"] + driver_bwd + sum(model_bwd.values())
-        + fleet_bwd,
+        + fleet_bwd + p11_bwd,
         "launches_by_path": {"train": trained["launches"]["additive_attention_bwd"],
                              "scst": scst_launches["additive_attention_bwd"],
                              "drivers": driver_bwd, **model_bwd,
                              "fleet_xe": fleet_launches["fleet_xe"][1],
-                             "fleet_scst": fleet_launches["fleet_scst"][1]},
+                             "fleet_scst": fleet_launches["fleet_scst"][1],
+                             **{run: b for run, (_, b) in p11_launches.items()}},
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
         # errors relative to the largest plain value of each output
         "max_rel_err": max(r["max_rel_err"] for r in bwd_rows),
@@ -2404,7 +2937,7 @@ def main():
         "plain_ms": train_bwd["plain_ms"],
         "bound_ms": train_bwd["bound_ms"],
         "by_path": {"train": train_bwd, "scst": scst_bwd, "drivers": drivers_bwd, **rn_bwd,
-                    **fleet_bwd_sums},
+                    **fleet_bwd_sums, **remat_bwd, **front_bwd},
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in bwd16) else "operations",
         "library_ms": None,  # no single PyTorch call computes its gradient
         "ok": all(r["ok"] and r["bitwise_repeat"] for r in bwd_rows),
@@ -2417,6 +2950,7 @@ def main():
     log("drivers summary: " + json.dumps(driven))
     log("models summary: " + json.dumps(driven_models))
     log("fleets summary: " + json.dumps(fleet))
+    log("phase 11 summary: " + json.dumps(p11))
     for k in kernels:
         for path, sums in k["by_path"].items():
             log(f"kernel {k['name']} per {sums['dtype']} {path} path ({sums['launches']} "

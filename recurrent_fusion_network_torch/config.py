@@ -71,7 +71,7 @@ def _train_defaults() -> dict:
         drop_prob_lm=0.0,
         drop_prob_reason=0.0,
         drop_prob_fusion=0.0,
-        optim="adam",  # adam | sgd (rmsprop, adagrad, adadelta: not ported)
+        optim="adam",  # adam | sgd | rmsprop | adagrad | adadelta
         optim_lr=5e-4,
         learning_rate_decay_start=1,
         learning_rate_decay_every=3,

@@ -18,11 +18,15 @@ a checkpoint of another architecture fails with the path that differs.
 
 The optimizer file of a JAX checkpoint is the optax chain's state, a tuple
 with one entry per transform: ``EmptyState()`` for the clamp and the weight
-decay, then ``ScaleByAdamState(count, mu, nu)`` for adam or, for sgd with
-momentum, ``TraceState(trace)``. The checkpoint reader rebuilds those
-classes as the ``Jax*State`` named tuples below, and ``opt_state_from_jax``
-maps the chain to the port's ``AdamState`` / ``SgdState``; ``params_to_jax``
-and ``opt_state_to_jax`` go the other way, for the checkpoint writer.
+decay, then the optimizer's: ``ScaleByAdamState(count, mu, nu)`` for adam;
+for sgd with momentum ``TraceState(trace)``; for rmsprop
+``ScaleByRmsState(nu)``, followed with momentum by ``TraceState(trace)``;
+for adagrad the JAX package's ``ScaleByAdagradState(count, sum_sq)``; for
+adadelta ``ScaleByAdaDeltaState(e_g, e_x)``. The checkpoint reader rebuilds
+those classes as the ``Jax*State`` named tuples below, and
+``opt_state_from_jax`` maps the chain to the port's optimizer states
+(``training/optim.py``); ``params_to_jax`` and ``opt_state_to_jax`` go the
+other way, for the checkpoint writer.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ import numpy as np
 import torch
 
 from .ops.initializers import tree_map
-from .training.optim import AdamState, SgdState
+from .training.optim import AdadeltaState, AdagradState, AdamState, RmspropState, SgdState
 
 
 class JaxEmptyState(NamedTuple):
@@ -52,6 +56,27 @@ class JaxTraceState(NamedTuple):
     """optax TraceState, as unpickled by the port."""
 
     trace: Any
+
+
+class JaxScaleByRmsState(NamedTuple):
+    """optax ScaleByRmsState, as unpickled by the port."""
+
+    nu: Any
+
+
+class JaxScaleByAdagradState(NamedTuple):
+    """The JAX package's training.optim.ScaleByAdagradState, as unpickled
+    by the port."""
+
+    count: Any
+    sum_sq: Any
+
+
+class JaxScaleByAdaDeltaState(NamedTuple):
+    """optax ScaleByAdaDeltaState, as unpickled by the port."""
+
+    e_g: Any
+    e_x: Any
 
 
 def _to_tensor(x) -> torch.Tensor:
@@ -104,37 +129,52 @@ def opt_state_from_jax(chain, model=None):
     """An unpickled optax chain state -> the port's optimizer state (CPU
     tensors). With ``model``, every moment tree is held against the model's
     layout, so the state of another architecture fails with its path."""
-    parts = [s for s in chain if not isinstance(s, JaxEmptyState)]
-    if len(parts) > 1 or not all(isinstance(s, (JaxScaleByAdamState, JaxTraceState))
-                                 for s in parts):
-        raise ValueError(
-            f"unsupported optimizer state {[type(s).__name__ for s in chain]}: the "
-            "port reads the adam chain and sgd with or without momentum")
-    trees = {}
-    if parts and isinstance(parts[0], JaxScaleByAdamState):
-        trees = {"mu": parts[0].mu, "nu": parts[0].nu}
-    elif parts:
-        trees = {"trace": parts[0].trace}
-    trees = {k: params_from_jax(v) for k, v in trees.items()}
-    if model is not None:
-        for k, v in trees.items():
-            check_params(model, v, name=k)
-    if "mu" in trees:
-        return AdamState(count=int(np.asarray(parts[0].count)), **trees)
-    return SgdState(trace=trees.get("trace"))
+    parts = tuple(s for s in chain if not isinstance(s, JaxEmptyState))
+    kinds = tuple(type(s) for s in parts)
+
+    def tree(x, name):
+        t = params_from_jax(x)
+        if model is not None:
+            check_params(model, t, name=name)
+        return t
+
+    if kinds == (JaxScaleByAdamState,):
+        a = parts[0]
+        return AdamState(int(np.asarray(a.count)), tree(a.mu, "mu"), tree(a.nu, "nu"))
+    if kinds in ((), (JaxTraceState,)):
+        return SgdState(tree(parts[0].trace, "trace") if parts else None)
+    if kinds in ((JaxScaleByRmsState,), (JaxScaleByRmsState, JaxTraceState)):
+        return RmspropState(tree(parts[0].nu, "nu"),
+                            tree(parts[1].trace, "trace") if len(parts) > 1 else None)
+    if kinds == (JaxScaleByAdagradState,):
+        a = parts[0]
+        return AdagradState(int(np.asarray(a.count)), tree(a.sum_sq, "sum_sq"))
+    if kinds == (JaxScaleByAdaDeltaState,):
+        return AdadeltaState(tree(parts[0].e_g, "e_g"), tree(parts[0].e_x, "e_x"))
+    raise ValueError(
+        f"unsupported optimizer state {[type(s).__name__ for s in chain]}: the port "
+        "reads the chains of adam, sgd, rmsprop, adagrad and adadelta")
 
 
 def opt_state_to_jax(state, opt):
     """The port's optimizer state -> the optax chain state the JAX package
     builds for ``opt`` (clamp, weight decay when ``optim_weight_decay``,
-    then adam or sgd's momentum trace), numpy leaves, ``count`` int32 as
-    optax keeps it."""
+    then the optimizer's states), numpy leaves, counts int32 as the JAX
+    package keeps them."""
     chain = [JaxEmptyState()]
     if opt.optim_weight_decay:
         chain.append(JaxEmptyState())
     if isinstance(state, AdamState):
         chain.append(JaxScaleByAdamState(np.asarray(state.count, np.int32),
                                          params_to_jax(state.mu), params_to_jax(state.nu)))
-    elif state.trace is not None:
+    elif isinstance(state, RmspropState):
+        chain.append(JaxScaleByRmsState(params_to_jax(state.nu)))
+    elif isinstance(state, AdagradState):
+        chain.append(JaxScaleByAdagradState(np.asarray(state.count, np.int32),
+                                            params_to_jax(state.sum_sq)))
+    elif isinstance(state, AdadeltaState):
+        chain.append(JaxScaleByAdaDeltaState(params_to_jax(state.e_g),
+                                             params_to_jax(state.e_x)))
+    if isinstance(state, (SgdState, RmspropState)) and state.trace is not None:
         chain.append(JaxTraceState(params_to_jax(state.trace)))
     return tuple(chain)

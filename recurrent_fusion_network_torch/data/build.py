@@ -2,15 +2,16 @@
 
 The port's copy of ``recurrent_fusion_network_tpu/data/build.py``. Feature
 backend per encoder, in order:
-  1. packed consolidated arrays at {data_root}/{encoder}/packed/;
-  2. reference-compatible per-image file dirs from the registry paths;
-  3. feature_type == 'synthetic' (or a plain dict entry): deterministic
+  1. the sharded columnar store at {data_root}/{encoder}/sharded/
+     (``data/sharded.py``, read through the native gather);
+  2. packed consolidated arrays at {data_root}/{encoder}/packed/;
+  3. reference-compatible per-image file dirs from the registry paths;
+  4. feature_type == 'synthetic' (or a plain dict entry): deterministic
      random features (smoke runs), one source per entry of
      feat_array_info (the JAX package keeps the first only, which the
      fusion model cannot run on).
-A sharded columnar store ({data_root}/{encoder}/sharded/manifest.json) is
-not read yet (ROADMAP.md queue 1, M6 remainder), and the loader is never
-sharded across hosts (M10).
+A store whose geometry differs from the registry's raises ValueError. The
+loader is never sharded across hosts (ROADMAP.md queue 1, M10).
 """
 
 from __future__ import annotations
@@ -41,9 +42,9 @@ def _source_for(info, data_root: str, seed: int = 0):
     name = getattr(info, "name", "")
     sharded = os.path.join(data_root, name, "sharded")
     if name and os.path.exists(os.path.join(sharded, "manifest.json")):
-        raise NotImplementedError(
-            f"{sharded} is a sharded feature store, which the port does not read yet "
-            "(ROADMAP.md queue 1, M6 remainder); pack it with PackedFeatureSource.write")
+        from .sharded import ShardedFeatureSource
+
+        return _check_dims(ShardedFeatureSource(sharded), info, sharded)
     packed = os.path.join(data_root, name, "packed")
     if name and os.path.isdir(packed):
         return _check_dims(PackedFeatureSource(packed), info, packed)

@@ -319,8 +319,16 @@ class DataLoader:
         """Each image's feature rows, repeated spi times, written straight
         into one pinned slot (packed stores hand out memory-mapped views,
         so every byte is copied once), the arrays filled by a thread pool
-        (numpy copies release the GIL)."""
-        rows = [[src.load(i, v) for i, v in local_rows] for src in self.sources]
+        (numpy copies release the GIL). A source with ``load_batch`` (the
+        sharded store) reads the batch's rows in one batched gather."""
+        rows = []
+        for src in self.sources:
+            if hasattr(src, "load_batch"):
+                fc, att = src.load_batch([i for i, _ in local_rows],
+                                         [v for _, v in local_rows])
+                rows.append(list(zip(fc, att)))
+            else:
+                rows.append([src.load(i, v) for i, v in local_rows])
         rows = [[(fc, att.reshape(-1, att.shape[-1])) for fc, att in r] for r in rows]
         firsts = [x for r in rows for x in r[0]]
 

@@ -23,11 +23,20 @@ CUDA tensor each direction launches its kernel or raises; on a CPU tensor
 it runs the plain PyTorch version of the same function,
 ``additive_attention_ref`` forward and ``additive_attention_bwd_ref``
 backward (explicit equations, not autograd).
+
+Under activation rematerialisation with the ``save_ctx`` policy
+(``models/base.py::remat_wrap``) the reads of a checkpointed step keep
+their outputs: ``recording(tape)`` appends each read's (z, w) to ``tape``
+during the step's forward, and ``replaying(tape)`` hands them back, in the
+same order, during autograd's recompute, which then launches no forward
+kernel. The backward is the same either way.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 
 import torch
 
@@ -51,6 +60,8 @@ _FWD_ACC, _BWD_ACC = 16, 8  # f32 sums per thread: of z (fwd), of dq and dv (bwd
 launches = 0
 bwd_launches = 0
 scalar_launches = 0
+
+_tape = threading.local()  # mode: None, "record" or "replay"; outs; pos
 
 
 def _pad(x, n):
@@ -276,12 +287,16 @@ def additive_attention_bwd(dz, dw, q, keys, v, values, w, mask=None, *,
 
 class AdditiveAttentionFn(torch.autograd.Function):
     """Autograd for the read: forward through ``additive_attention_fwd``,
-    backward through ``additive_attention_bwd``. Saves the inputs the
-    gradient needs and w; the tanh activations are recomputed backward."""
+    or ``replay``'s (z, w) where they were kept; backward through
+    ``additive_attention_bwd``. Saves the inputs the gradient needs and w;
+    the tanh activations are recomputed backward."""
 
     @staticmethod
-    def forward(ctx, q, keys, v, bv, values, mask):
-        z, w = additive_attention_fwd(q, keys, v, bv, values, mask)
+    def forward(ctx, q, keys, v, bv, values, mask, replay=None):
+        if replay is None:
+            z, w = additive_attention_fwd(q, keys, v, bv, values, mask)
+        else:  # new tensors over the kept storage, no copy
+            z, w = replay[0].detach(), replay[1].detach()
         ctx.save_for_backward(q, keys, v, values, w, mask)
         ctx.set_materialize_grads(False)  # the cells discard w: its grad is None
         return z, w
@@ -295,11 +310,47 @@ class AdditiveAttentionFn(torch.autograd.Function):
         dq, dkeys, dvalues, dv, dbv = additive_attention_bwd(
             dz.contiguous(), None if dw is None else dw.contiguous(), q, keys, v,
             values, w, mask, need_dvalues=ctx.needs_input_grad[4])
-        return dq, dkeys, dv, dbv, dvalues, None
+        return dq, dkeys, dv, dbv, dvalues, None, None
+
+
+@contextlib.contextmanager
+def recording(tape: list):
+    """Append every read's (z, w), detached, to ``tape`` (the first forward
+    of a step checkpointed under the save_ctx policy)."""
+    prev = getattr(_tape, "mode", None), getattr(_tape, "outs", None)
+    _tape.mode, _tape.outs = "record", tape
+    try:
+        yield
+    finally:
+        _tape.mode, _tape.outs = prev
+
+
+@contextlib.contextmanager
+def replaying(tape: list):
+    """Return the reads' (z, w) from ``tape``, in order, instead of
+    launching the forward (the recompute of that step)."""
+    prev = (getattr(_tape, "mode", None), getattr(_tape, "outs", None),
+            getattr(_tape, "pos", 0))
+    _tape.mode, _tape.outs, _tape.pos = "replay", tape, 0
+    try:
+        yield
+    finally:
+        _tape.mode, _tape.outs, _tape.pos = prev
 
 
 def additive_attention(q, keys, v, bv, values, mask=None):
     """-> (z (rows, D), w (rows, A)), differentiable; see the module
     docstring."""
     _check(q, keys, v, bv, values, mask)
-    return AdditiveAttentionFn.apply(q, keys, v, bv, values, mask)
+    mode = getattr(_tape, "mode", None)
+    if mode == "replay":
+        replay = _tape.outs[_tape.pos]
+        _tape.pos += 1
+        if replay[0].shape != (keys.shape[0], values.shape[2]):
+            raise RuntimeError("additive_attention: the recompute's reads differ from "
+                               "the forward's")
+        return AdditiveAttentionFn.apply(q, keys, v, bv, values, mask, replay)
+    z, w = AdditiveAttentionFn.apply(q, keys, v, bv, values, mask)
+    if mode == "record":
+        _tape.outs.append((z.detach(), w.detach()))
+    return z, w

@@ -1,9 +1,8 @@
 """Shared model protocol pieces and the model factory.
 
 Counterpart of ``recurrent_fusion_network_tpu/models/base.py`` for the
-pieces decoding and the XE train step need. ``remat_wrap`` is not ported
-(ROADMAP queue 1, M3 remainder): the attention models' forward raises for
-``use_remat``.
+pieces decoding and the XE train step need, ``remat_wrap`` (activation
+rematerialisation, ``--use_remat``) among them.
 
 Feature arguments: RFNet takes sequences of M per-encoder tensors; the
 single-encoder models (ShowTell, ReviewNet) take a tensor or a sequence of
@@ -12,11 +11,17 @@ one (``single_encoder``), as the port's drivers hand every model lists.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, List, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from ..kernels import additive_attention as aa
+from ..ops.cells import Draws, dropout_masks
 from ..ops.initializers import linear, tree_map, uniform
+
+REMAT_POLICIES = ("save_ctx", "full")
 
 
 class EncodeOut(NamedTuple):
@@ -72,11 +77,66 @@ def tile_for_lanes(tree, n_lanes: int):
     return tree_map(lambda x: torch.repeat_interleave(x, n_lanes, dim=0), tree)
 
 
+def remat_wrap(fn, policy: str = "save_ctx"):
+    """``fn`` under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are not kept for the backward but recomputed there.
+
+    "full":     everything is recomputed; only ``fn``'s inputs and outputs
+                (the carries) are kept, and each attention read launches
+                its forward kernel a second time.
+    "save_ctx": as "full", but every attention read's context and weights
+                (z (B, D), w (B, A); the JAX package's ``attn_ctx`` /
+                ``attn_weights``) are kept from the forward and handed back
+                to the recompute (``kernels/additive_attention.py::
+                recording`` / ``replaying``), which launches no forward
+                kernel and reads no (B, A, D) features for it.
+    The values are the forward's either way. ``fn`` must not draw random
+    numbers (the recompute would draw others): its caller draws them ahead
+    and passes them in (``ops/cells.py::Draws``). Any other policy raises
+    ValueError.
+    """
+    if policy not in REMAT_POLICIES:
+        # a typo ('save-ctx') must not silently degrade to another remat
+        raise ValueError(
+            f"unknown remat policy {policy!r} (expected 'save_ctx' or 'full')")
+
+    def context_fn():
+        if policy == "full":
+            return contextlib.nullcontext(), contextlib.nullcontext()
+        tape = []
+        return aa.recording(tape), aa.replaying(tape)
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():  # no backward, nothing to recompute
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn,
+                          preserve_rng_state=False)
+
+    return wrapped
+
+
+def review_step(step, model, *, n_cells, rate, generator, training, like):
+    """A review loop's ``step(s, carry, rand)`` as the loop calls it, ``(s,
+    carry)``: as it is, or under ``model.use_remat`` rematerialised with
+    ``model.remat_policy``, its ``n_cells`` dropout masks of (B,
+    model.rnn_size) drawn before it runs (B rows and the device of
+    ``like``)."""
+    if not model.use_remat:
+        return lambda s, carry: step(s, carry, generator)
+    wrapped = remat_wrap(lambda s, carry, masks: step(s, carry, Draws(masks)),
+                         model.remat_policy)
+    shapes = [(like.shape[0], model.rnn_size)] * n_cells
+    return lambda s, carry: wrapped(
+        s, carry, dropout_masks(generator, shapes, rate, training, device=like.device))
+
+
 def xe_decode(decode_logprobs_fn, embed_fn, state, seq_in, *, ss_prob=0.0,
-              generator=None):
+              generator=None, remat=False, remat_policy="save_ctx",
+              step_draws=lambda generator: []):
     """Teacher-forced decode over time with scheduled sampling.
 
-    decode_logprobs_fn: (xt, state) -> (logprobs (B, V+1), state);
+    decode_logprobs_fn: (xt, state, rand) -> (logprobs (B, V+1), state),
+    ``rand`` the generator its dropout draws from (``Draws`` under remat);
     embed_fn: tokens -> embeddings; seq_in: (B, T) int input tokens (column
     0 is BOS = 0). Returns (B, T, V+1) log-probabilities.
 
@@ -85,8 +145,20 @@ def xe_decode(decode_logprobs_fn, embed_fn, state, seq_in, *, ss_prob=0.0,
     coin from ``torch.rand``, the draw by Gumbel-max, both from
     ``generator``). With ss_prob == 0 nothing is drawn, as the JAX
     ``lax.cond`` skips the draws; t = 0 always keeps the teacher token.
+
+    With ``remat`` each step is ``remat_wrap``-ped under ``remat_policy``:
+    its input token is chosen, and its dropout masks drawn
+    (``step_draws(generator)``), before it runs, in the order the step
+    without remat draws them.
     """
     B, T = seq_in.shape
+
+    def step(tok, state, rand):
+        return decode_logprobs_fn(embed_fn(tok), state, rand)
+
+    if remat:
+        wrapped = remat_wrap(lambda tok, state, masks: step(tok, state, Draws(masks)),
+                             remat_policy)
     lps = []
     for t in range(T):
         tok = seq_in[:, t]
@@ -97,7 +169,10 @@ def xe_decode(decode_logprobs_fn, embed_fn, state, seq_in, *, ss_prob=0.0,
             gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
             sampled = torch.argmax(prev + gumbel, dim=-1)
             tok = torch.where(coin, sampled.to(tok.dtype), tok)
-        lp, state = decode_logprobs_fn(embed_fn(tok), state)
+        if remat:
+            lp, state = wrapped(tok, state, step_draws(generator))
+        else:
+            lp, state = step(tok, state, generator)
         lps.append(lp)
     return torch.stack(lps, dim=1)
 

@@ -16,7 +16,10 @@ package, and the JAX scans become Python loops over that axis. Three
 profiles share the code: tied attention keys (the default), untied keys
 (``--reference_parity``) and ``low_rank_ctx``. ``forward`` is the
 teacher-forced training pass; with ``training=True`` the cells apply
-dropout drawn from the caller's ``torch.Generator``.
+dropout drawn from the caller's ``torch.Generator``. With ``use_remat``
+each stage-I and stage-II review step and each XE decode step is
+rematerialised (``models/base.py::remat_wrap``), as the JAX package wraps
+its scan steps; a step's dropout masks are drawn before it runs.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ import torch
 from ..device import resolve_device
 from ..ops import attention, cells
 from ..ops.initializers import apply_linear, index_params, linear, stack_params
-from .base import EncodeOut, embed_tokens, init_embed_logit, resolve_tied, xe_decode
+from .base import (EncodeOut, embed_tokens, init_embed_logit, resolve_tied, review_step,
+                   xe_decode)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,8 +55,8 @@ class RecurrentFusionModel:
     review_maxout: bool = False
     decoder_maxout: bool = False
     fusion_maxout: bool = False
-    # activation rematerialisation of the JAX package (models/base.py::
-    # remat_wrap); not ported: forward raises when it is set
+    # rematerialise the review steps and the XE decode in the backward
+    # (models/base.py::remat_wrap, policy "save_ctx" or "full")
     use_remat: bool = False
     remat_policy: str = "save_ctx"
     tied_att_keys: bool = False
@@ -160,7 +164,6 @@ class RecurrentFusionModel:
     def encode(self, params, fc_feats, att_feats, *, generator=None, training=False):
         """fc_feats / att_feats: sequences of M tensors, (B, D_j) and
         (B, A_j, D_j)."""
-        drop = dict(generator=generator, training=training)
         M, R = self.num_feat_array, self.rnn_size
         if len(fc_feats) != M or len(att_feats) != M:
             raise ValueError(f"expected {M} encoders' features")
@@ -185,21 +188,29 @@ class RecurrentFusionModel:
             values = list(att_feats)
 
         # ---- stage I: interacting fusion review
-        outs = [[] for _ in range(M)]
-        reasons = [[] for _ in range(M)]
-        for s in range(self.num_review_steps_0):
+        def stage1(s, states, rand):
             H = torch.cat([st[0] for st in states], dim=1)  # (B, M*R)
-            new_states = []
+            outs, reasons, new_states = [], [], []
             for j in range(M):
                 out, st = cells.fusion_lstm_step(
                     index_params(params["review1"][j], s), H, values[j], states[j],
                     keys=keys1[j] if self.tied_att_keys else keys1[j][s],
                     rnn_size=R, maxout=self.fusion_maxout,
-                    drop_rate=self.drop_prob_fusion, **drop)
-                outs[j].append(out)
-                reasons[j].append(apply_linear(params["reason_individual"][j], out))
+                    drop_rate=self.drop_prob_fusion, generator=rand, training=training)
+                outs.append(out)
+                reasons.append(apply_linear(params["reason_individual"][j], out))
                 new_states.append(st)
-            states = new_states
+            return new_states, outs, reasons
+
+        step1 = review_step(stage1, self, n_cells=M, rate=self.drop_prob_fusion,
+                            generator=generator, training=training, like=fc_feats[0])
+        outs = [[] for _ in range(M)]
+        reasons = [[] for _ in range(M)]
+        for s in range(self.num_review_steps_0):
+            states, step_outs, step_reasons = step1(s, states)
+            for j in range(M):
+                outs[j].append(step_outs[j])
+                reasons[j].append(step_reasons[j])
         thoughts_i = [torch.stack(o, dim=1) for o in outs]  # M x (B, R0, R)
         reason_preds = [torch.stack(r).amax(dim=0) for r in reasons]
 
@@ -216,15 +227,22 @@ class RecurrentFusionModel:
             a2 = params["review2"]["att"]["att_2_att_h"]  # w: (S, M, R, H)
             keys2 = (torch.einsum("mbar,smrh->smbah", thought_stack, a2["w"])
                      + a2["b"][:, :, None, None, :])
-        comb_outs, comb_reasons = [], []
-        for s in range(self.num_review_steps):
+
+        def stage2(s, state, rand):
             out, state = cells.multi_att_lstm_step(
                 index_params(params["review2"], s), thought_stack, state,
                 keys_stack=keys2 if self.tied_att_keys else keys2[s],
                 rnn_size=R, maxout=self.review_maxout,
-                drop_rate=self.drop_prob_reason, **drop)
+                drop_rate=self.drop_prob_reason, generator=rand, training=training)
+            return state, out, apply_linear(params["reason_linear"], out)
+
+        step2 = review_step(stage2, self, n_cells=1, rate=self.drop_prob_reason,
+                            generator=generator, training=training, like=fc_feats[0])
+        comb_outs, comb_reasons = [], []
+        for s in range(self.num_review_steps):
+            state, out, reason = step2(s, state)
             comb_outs.append(out)
-            comb_reasons.append(apply_linear(params["reason_linear"], out))
+            comb_reasons.append(reason)
         thoughts_comb = torch.stack(comb_outs, dim=1)  # (B, S, R)
         reason_preds.append(torch.stack(comb_reasons).amax(dim=0))
 
@@ -252,15 +270,15 @@ class RecurrentFusionModel:
                 generator=None, training=False):
         """Teacher-forced pass over seq[:, :L+1] -> (log-probs (B, L+1, V+1)
         f32, the M+1 reason heads)."""
-        if self.use_remat:
-            raise NotImplementedError(
-                "use_remat (activation rematerialisation, JAX models/base.py::"
-                "remat_wrap) is not ported yet: ROADMAP.md queue 1, M3 remainder")
         enc = self.encode(params, fc_feats, att_feats, generator=generator,
                           training=training)
+        rows, device = fc_feats[0].shape[0], fc_feats[0].device
         lps = xe_decode(
-            lambda xt, state: self.decode_logprobs(
-                params, xt, enc.memory, state, generator=generator, training=training),
+            lambda xt, state, rand: self.decode_logprobs(
+                params, xt, enc.memory, state, generator=rand, training=training),
             lambda toks: self.embed(params, toks), enc.state,
-            seq[:, : self.seq_length + 1], ss_prob=ss_prob, generator=generator)
+            seq[:, : self.seq_length + 1], ss_prob=ss_prob, generator=generator,
+            remat=self.use_remat, remat_policy=self.remat_policy,
+            step_draws=lambda g: cells.dropout_masks(
+                g, [(rows, self.rnn_size)], self.drop_prob_lm, training, device=device))
         return lps, enc.reason_preds

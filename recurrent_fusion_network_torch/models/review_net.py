@@ -25,8 +25,8 @@ import torch
 from ..device import resolve_device
 from ..ops import attention, cells, mos
 from ..ops.initializers import apply_linear, index_params, linear, stack_params
-from .base import (EncodeOut, embed_tokens, init_embed_logit, resolve_tied, single_encoder,
-                   xe_decode)
+from .base import (EncodeOut, embed_tokens, init_embed_logit, resolve_tied, review_step,
+                   single_encoder, xe_decode)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,8 +47,8 @@ class ReviewNetModel:
     decoder_maxout: bool = False
     use_mos: bool = False
     num_expert: int = 10
-    # activation rematerialisation of the JAX package (models/base.py::
-    # remat_wrap); not ported: forward raises when it is set
+    # rematerialise the review steps and the XE decode in the backward
+    # (models/base.py::remat_wrap, policy "save_ctx" or "full")
     use_remat: bool = False
     remat_policy: str = "save_ctx"
     tied_att_keys: bool = False
@@ -135,15 +135,22 @@ class ReviewNetModel:
         else:
             a = params["review"]["att"]["att_2_att_h"]  # w: (S, D, H)
             keys = torch.einsum("bad,sdh->sbah", att, a["w"]) + a["b"][:, None, None, :]
-        outs, reasons = [], []
-        for s in range(self.num_review_steps):
+
+        def review(s, state, rand):
             out, state = cells.no_input_lstm_step(
                 index_params(params["review"], s), att, state,
                 keys=keys if self.tied_att_keys else keys[s], rnn_size=self.rnn_size,
                 maxout=self.review_maxout, drop_rate=self.drop_prob_reason,
-                generator=generator, training=training)
+                generator=rand, training=training)
+            return state, out, apply_linear(params["reason_linear"], out)
+
+        step = review_step(review, self, n_cells=1, rate=self.drop_prob_reason,
+                           generator=generator, training=training, like=fc)
+        outs, reasons = [], []
+        for s in range(self.num_review_steps):
+            state, out, reason = step(s, state)
             outs.append(out)
-            reasons.append(apply_linear(params["reason_linear"], out))
+            reasons.append(reason)
         thoughts = torch.stack(outs, dim=1)  # (B, S, R)
         memory = {
             "thoughts": thoughts,
@@ -178,15 +185,16 @@ class ReviewNetModel:
                 generator=None, training=False):
         """Teacher-forced pass over seq[:, :L+1] -> (log-probs (B, L+1, V+1)
         f32, [the reason head])."""
-        if self.use_remat:
-            raise NotImplementedError(
-                "use_remat (activation rematerialisation, JAX models/base.py::"
-                "remat_wrap) is not ported yet: ROADMAP.md queue 1, M3 remainder")
         enc = self.encode(params, fc_feats, att_feats, generator=generator,
                           training=training)
+        fc = single_encoder(fc_feats)
         lps = xe_decode(
-            lambda xt, state: self.decode_logprobs(
-                params, xt, enc.memory, state, generator=generator, training=training),
+            lambda xt, state, rand: self.decode_logprobs(
+                params, xt, enc.memory, state, generator=rand, training=training),
             lambda toks: self.embed(params, toks), enc.state,
-            seq[:, : self.seq_length + 1], ss_prob=ss_prob, generator=generator)
+            seq[:, : self.seq_length + 1], ss_prob=ss_prob, generator=generator,
+            remat=self.use_remat, remat_policy=self.remat_policy,
+            step_draws=lambda g: cells.dropout_masks(
+                g, [(fc.shape[0], self.rnn_size)], self.drop_prob_lm, training,
+                device=fc.device))
         return lps, enc.reason_preds

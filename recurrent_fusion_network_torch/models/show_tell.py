@@ -121,8 +121,8 @@ class ShowTellModel:
         enc = self.encode(params, fc_feats, att_feats, generator=generator,
                           training=training)
         lps = xe_decode(
-            lambda xt, state: self.decode_logprobs(
-                params, xt, None, state, generator=generator, training=training),
+            lambda xt, state, rand: self.decode_logprobs(
+                params, xt, None, state, generator=rand, training=training),
             lambda toks: self.embed(params, toks), enc.state,
             seq[:, : self.seq_length + 1], ss_prob=ss_prob, generator=generator)
         return lps, []

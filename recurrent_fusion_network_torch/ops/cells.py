@@ -15,7 +15,8 @@ Every attention read goes through ``ops/attention.py`` and so through the
 additive-attention kernels, forward and backward. State is a plain
 ``(h, c)`` tuple of (B, R) tensors. In training, dropout is applied to
 next_h before it is returned as both the output and the recurrent state
-(``maybe_dropout``, drawn from an explicit ``torch.Generator``).
+(``maybe_dropout``, drawn from an explicit ``torch.Generator``, or taken
+from ``Draws`` made ahead of a rematerialised step).
 """
 
 from __future__ import annotations
@@ -28,13 +29,45 @@ from . import attention
 from .initializers import apply_linear, linear, stack_params, uniform
 
 
+class Draws:
+    """Dropout masks drawn ahead of a step, handed out in the order the
+    step's cells ask for them. A step that autograd recomputes under remat
+    (``models/base.py::remat_wrap``) must not draw from a generator inside:
+    the recompute would draw again, and other masks than the forward's.
+    Its caller draws with ``dropout_masks``, in the order the step without
+    remat draws, so both consume the generator alike."""
+
+    def __init__(self, masks):
+        self.masks, self.pos = list(masks), 0
+
+    def take(self, shape):
+        if self.pos >= len(self.masks) or self.masks[self.pos].shape != shape:
+            raise RuntimeError(f"the step asks for a dropout mask of shape {tuple(shape)} "
+                               f"that was not drawn ahead (mask {self.pos} of "
+                               f"{len(self.masks)})")
+        self.pos += 1
+        return self.masks[self.pos - 1]
+
+
+def dropout_masks(generator, shapes, rate: float, training: bool, *, device):
+    """The keep masks ``maybe_dropout`` draws for ``shapes``, in order, as
+    ``Draws``; none unless training with rate > 0."""
+    if not training or rate <= 0.0:
+        return []
+    return [torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+            for shape in shapes]
+
+
 def maybe_dropout(x, rate: float, generator, training: bool):
     """Inverted dropout: x / keep where kept, 0 elsewhere. Draws nothing
-    unless training with rate > 0."""
+    unless training with rate > 0; ``generator`` may be ``Draws``."""
     if not training or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    if isinstance(generator, Draws):
+        mask = generator.take(x.shape)
+    else:
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

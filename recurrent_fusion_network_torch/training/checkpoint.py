@@ -27,7 +27,8 @@ import pickle
 import shutil
 from typing import Any, Optional, Tuple
 
-from ..convert import JaxEmptyState, JaxScaleByAdamState, JaxTraceState
+from ..convert import (JaxEmptyState, JaxScaleByAdaDeltaState, JaxScaleByAdagradState,
+                       JaxScaleByAdamState, JaxScaleByRmsState, JaxTraceState)
 from ..feat_registry import EncoderInfo
 from ..models.base import resolve_tied
 from ..ops.initializers import tree_map
@@ -39,6 +40,10 @@ _REDIRECT = {
     ("optax._src.transform", "ScaleByAdamState"): JaxScaleByAdamState,
     ("optax._src.transform", "TraceState"): JaxTraceState,  # older optax
     ("optax.transforms._accumulation", "TraceState"): JaxTraceState,
+    ("optax._src.transform", "ScaleByRmsState"): JaxScaleByRmsState,
+    ("optax._src.transform", "ScaleByAdaDeltaState"): JaxScaleByAdaDeltaState,
+    ("recurrent_fusion_network_tpu.training.optim", "ScaleByAdagradState"):
+        JaxScaleByAdagradState,
 }
 # the class paths the port's classes are written under (the installed optax
 # keeps TraceState in optax.transforms._accumulation; older ones read it
@@ -48,6 +53,10 @@ _JAX_NAMES = {
     JaxEmptyState: ("optax._src.base", "EmptyState"),
     JaxScaleByAdamState: ("optax._src.transform", "ScaleByAdamState"),
     JaxTraceState: ("optax.transforms._accumulation", "TraceState"),
+    JaxScaleByRmsState: ("optax._src.transform", "ScaleByRmsState"),
+    JaxScaleByAdaDeltaState: ("optax._src.transform", "ScaleByAdaDeltaState"),
+    JaxScaleByAdagradState: ("recurrent_fusion_network_tpu.training.optim",
+                             "ScaleByAdagradState"),
 }
 _BUILTINS = {"dict", "list", "tuple", "set", "frozenset", "slice", "complex",
              "bytearray", "range"}

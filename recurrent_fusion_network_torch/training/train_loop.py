@@ -36,8 +36,8 @@ from ..utils.logging import JsonlLogger
 from .checkpoint import (assert_arch_matches, cast_tree, link_triple, load_checkpoint,
                          load_optimizer, save_checkpoint)
 from .criterion import make_criterion
-from .optim import (AdamState, SgdState, apply_updates, lr_for_epoch, make_optimizer,
-                    ss_prob_for_epoch)
+from .optim import (apply_updates, lr_for_epoch, make_optimizer, ss_prob_for_epoch,
+                    state_fits, state_to)
 from .preempt import PreemptGuard
 
 # infos key of the port's random stream (the JAX package's is ``rng_key``,
@@ -100,12 +100,9 @@ def resume(opt, model, loader, rank, device, *, best=False, prefix="",
     if "iterators" in infos:
         loader.restore_state(infos["iterators"], infos["split_image_id"],
                              infos.get("loader_rng"))
-    to_dev = lambda t: tree_map(lambda x: x.to(device), t)  # noqa: E731
-    if isinstance(opt_state, AdamState):
-        opt_state = AdamState(opt_state.count, to_dev(opt_state.mu), to_dev(opt_state.nu))
-    elif isinstance(opt_state, SgdState):
-        opt_state = SgdState(to_dev(opt_state.trace))
-    return to_dev(params), opt_state, infos
+    if opt_state is not None:
+        opt_state = state_to(opt_state, device)
+    return tree_map(lambda x: x.to(device), params), opt_state, infos
 
 
 def restore_generator(generator, infos) -> None:
@@ -216,12 +213,6 @@ class Boundaries:
         """The triple and, at a new best, the best one beside it: one copy
         of params and moments off the device, written once."""
         self.write(to_host(params, opt_state, self.opt), infos, best=best, rolling=True)
-
-
-def state_fits(state, tx) -> bool:
-    if tx.name == "adam":
-        return isinstance(state, AdamState)
-    return isinstance(state, SgdState) and (state.trace is None) == (not tx.momentum)
 
 
 def start_state(opt, model, tx, loader, rank, device):

@@ -58,10 +58,9 @@ from ..rewards.cider_d import CiderD
 from ..rewards.self_critical import check_spice_weight, compute_reward
 from ..utils.logging import JsonlLogger
 from .criterion import make_rl_criterion
-from .optim import lr_for_epoch, make_optimizer
+from .optim import lr_for_epoch, make_optimizer, state_fits
 from .preempt import PreemptGuard
-from .train_loop import (Boundaries, device_batch, grad_update, restore_generator, resume,
-                         state_fits)
+from .train_loop import Boundaries, device_batch, grad_update, restore_generator, resume
 
 
 def make_rollout_fn(model):

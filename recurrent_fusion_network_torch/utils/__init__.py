@@ -1,1 +1,2 @@
-"""Utilities of the port: the JSONL event log."""
+"""Utilities of the port: the JSONL event log and the build of the host C++
+libraries."""

@@ -272,27 +272,52 @@ def test_build_loader_matches_jax_for_each_feature_type(corpus, tmp_path, featur
 
 
 def test_build_loader_refuses_a_sharded_store_and_a_wrong_geometry(corpus, tmp_path):
+    """A sharded store at {data_root}/{encoder}/sharded/ (once refused) is
+    read before a packed one, as the JAX package reads it: the batches of
+    both loaders on it bit-exact, through the port's native gather. A
+    sharded or packed store of another geometry than the registry's is
+    refused."""
+    from recurrent_fusion_network_torch.config import finalize_options
+    from recurrent_fusion_network_torch.data.sharded import ShardedFeatureSource
+
     _, paths, ids = corpus
     root = str(tmp_path)
     kw = dict(input_json=paths[0], input_label_h5=paths[1], top_words_path=paths[2],
-              top_words_count=5, data_root=root, caption_model="show_tell")
-    sharded = os.path.join(root, "resnet", "sharded")
-    os.makedirs(sharded)
-    with open(os.path.join(sharded, "manifest.json"), "w") as f:
-        f.write("{}")
-    topt = TorchOptions(feature_type="resnet", device="cpu", **kw)
-    from recurrent_fusion_network_torch.config import finalize_options
-
+              top_words_count=5, data_root=root, caption_model="show_tell", batch_size=3,
+              seq_per_img=2, seed=4)
+    g = np.random.default_rng(6)
+    v4 = t_registry.inception_v4_info()
+    ShardedFeatureSource.write(
+        os.path.join(root, "inception_v4", "sharded"), ids,
+        {"original": g.standard_normal((len(ids), v4.fc_feat_size)).astype(np.float32)},
+        {"original": g.standard_normal((len(ids), v4.att_num, v4.att_feat_size)
+                                       ).astype(np.float32)}, shard_size=5)
+    j_dataset.PackedFeatureSource.write(  # a packed store beside it is not read
+        os.path.join(root, "inception_v4", "packed"), ids,
+        {"original": np.zeros((len(ids), v4.fc_feat_size))},
+        {"original": np.zeros((len(ids), v4.att_num, v4.att_feat_size))})
+    topt = TorchOptions(feature_type="inception_v4", device="cpu", **kw)
     finalize_options(topt)
-    with pytest.raises(NotImplementedError, match="sharded"):
-        t_build.build_loader(topt, prefetch=False)
-    packed = os.path.join(root, "densenet", "packed")
-    j_dataset.PackedFeatureSource.write(packed, ids, {"original": np.zeros((len(ids), 4))},
-                                        {"original": np.zeros((len(ids), 2, 4))})
-    topt = TorchOptions(feature_type="densenet", device="cpu", **kw)
-    finalize_options(topt)
-    with pytest.raises(ValueError, match="registry declares"):
-        t_build.build_loader(topt, prefetch=False)
+    jl = j_build.build_loader(JaxOptions(feature_type="inception_v4", **kw), prefetch=False)
+    tl = t_build.build_loader(topt, prefetch=False)
+    try:
+        [src] = tl.sources
+        assert type(src).__name__ == type(jl.sources[0]).__name__ == "ShardedFeatureSource"
+        for k in range(4):
+            _assert_batches_equal(jl.get_batch("train"), tl.get_batch("train"), f"batch {k}")
+        assert src.engine == "native" and src.native_gathers > 0
+    finally:
+        jl.close()
+        tl.close()
+    for name, kind in (("resnet", "sharded"), ("densenet", "packed")):
+        writer = (ShardedFeatureSource if kind == "sharded" else j_dataset.PackedFeatureSource)
+        writer.write(os.path.join(root, name, kind), ids,
+                     {"original": np.zeros((len(ids), 4), np.float32)},
+                     {"original": np.zeros((len(ids), 2, 4), np.float32)})
+        topt = TorchOptions(feature_type=name, device="cpu", **kw)
+        finalize_options(topt)
+        with pytest.raises(ValueError, match="registry declares"):
+            t_build.build_loader(topt, prefetch=False)
 
 
 def test_synthetic_setup_matches_jax():

@@ -176,13 +176,18 @@ def test_rollout_greedy_half_matches_jax():
 
 
 def test_remat_and_low_rank_ctx_are_refused():
+    """use_remat (once refused) gives forward's log-probs and reason head
+    bit for bit under both policies; low_rank_ctx is refused."""
     jopt, topt = _pair("tied")
     _, tm, _, tp = parity.models(jopt, topt)
     fc, att, labels, _, _ = parity.batch()
     from dataclasses import replace
 
-    with pytest.raises(NotImplementedError, match="M3"):
-        replace(tm, use_remat=True).forward(tp, _t(fc), _t(att), _t(labels))
+    want = tm.forward(tp, _t(fc), _t(att), _t(labels))
+    for policy in ("save_ctx", "full"):
+        got = replace(tm, use_remat=True, remat_policy=policy).forward(
+            tp, _t(fc), _t(att), _t(labels))
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1][0], want[1][0])
     topt.low_rank_ctx = 1
     with pytest.raises(ValueError, match="low_rank_ctx"):
         type(tm).from_opt(topt)

@@ -31,6 +31,7 @@ from recurrent_fusion_network_torch.ops import losses as t_losses
 from recurrent_fusion_network_torch.ops.initializers import tree_map
 from recurrent_fusion_network_torch.rewards import cider_d as t_cider
 from recurrent_fusion_network_torch.rewards import native as t_native
+from recurrent_fusion_network_torch.utils import native_build
 from recurrent_fusion_network_torch.rewards.self_critical import compute_reward as t_reward
 from recurrent_fusion_network_torch.training import optim as t_optim
 from recurrent_fusion_network_torch.training import train_rl_loop as t_rl
@@ -223,9 +224,9 @@ def test_cider_d_guards_raise_as_in_jax(tmp_path):
 
 def test_native_engine_needs_a_compiler_and_auto_falls_back(monkeypatch):
     df, ref_len, _, _, _, _ = _reward_case()
-    monkeypatch.setattr(t_native, "_loaded", {})
-    monkeypatch.setattr(t_native, "_fresh", lambda: False)
-    monkeypatch.setattr(t_native, "compiler", lambda: None)
+    monkeypatch.setattr(t_native.LIBRARY, "_lib", None)
+    monkeypatch.setattr(t_native.LIBRARY, "fresh", lambda: False)
+    monkeypatch.setattr(native_build, "compiler", lambda: None)
     with pytest.raises(RuntimeError, match="no C\\+\\+ compiler"):
         t_cider.CiderD(df, ref_len, backend="native")
     with pytest.warns(UserWarning, match="NumPy engine"):

@@ -26,14 +26,14 @@ import torch
 
 from recurrent_fusion_network_torch.config import Options as TorchOptions
 from recurrent_fusion_network_torch.convert import (check_params, opt_state_from_jax,
-                                                    params_from_jax)
+                                                    opt_state_to_jax, params_from_jax)
 from recurrent_fusion_network_torch.kernels import additive_attention as aa
 from recurrent_fusion_network_torch.models import RecurrentFusionModel as TorchRFNet
 from recurrent_fusion_network_torch.models.base import xe_decode
 from recurrent_fusion_network_torch.ops import attention as t_attention
 from recurrent_fusion_network_torch.ops import cells as t_cells
 from recurrent_fusion_network_torch.ops import losses as t_losses
-from recurrent_fusion_network_torch.ops.initializers import tree_map
+from recurrent_fusion_network_torch.ops.initializers import tree_leaves, tree_map
 from recurrent_fusion_network_torch.training import optim as t_optim
 from recurrent_fusion_network_torch.training.checkpoint import load_optimizer
 from recurrent_fusion_network_torch.training.criterion import make_criterion as t_crit
@@ -400,8 +400,110 @@ def test_optimizer_sgd_and_schedules_match_jax():
         assert t_optim.ss_prob_for_epoch(topt, epoch) == pytest.approx(
             j_optim.ss_prob_for_epoch(jopt, epoch))
     for name in ("rmsprop", "adagrad", "adadelta"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_optim.make_optimizer(TorchOptions(optim=name))
+        tx = t_optim.make_optimizer(TorchOptions(optim=name))
+        assert tx.name == name and t_optim.state_fits(tx.init(tp), tx)
+        assert not t_optim.state_fits(ts, tx)
+    with pytest.raises(ValueError, match="not supported"):
+        t_optim.make_optimizer(TorchOptions(optim="lamb"))
+
+
+OPTIM_CASES = {
+    "rmsprop": dict(optim="rmsprop", optim_weight_decay=0.0),
+    "rmsprop_momentum_wd": dict(optim="rmsprop", optim_momentum=0.9, optim_weight_decay=1e-2,
+                                optim_rmsprop_alpha=0.9),
+    "adagrad": dict(optim="adagrad", optim_weight_decay=0.0),
+    "adagrad_lr_decay_wd": dict(optim="adagrad", optim_lr_decay=0.1, optim_weight_decay=1e-2),
+    "adadelta": dict(optim="adadelta", optim_rho=0.95, optim_epsilon=1e-6),
+}
+
+
+def _optim_case(case):
+    """(jopt, topt, params tree, three gradient trees) from a numpy seed;
+    gradients N(0, 0.5), clamped at 0.6."""
+    jopt, topt = _opts("tied", grad_clip=0.6, **OPTIM_CASES[case])
+    rng = np.random.default_rng(11)
+    tree = {"a": rng.standard_normal((3, 4)).astype(np.float32),
+            "b": [rng.standard_normal(5).astype(np.float32)]}
+    grads = [jax.tree_util.tree_map(lambda x: (0.5 * rng.standard_normal(x.shape)).astype(
+        np.float32), tree) for _ in range(3)]
+    return jopt, topt, tree, grads
+
+
+def _chain_leaves(chain):
+    """(the chain's state class names, its leaves as numpy arrays)."""
+    names = [type(s).__name__.removeprefix("Jax") for s in chain]
+    return names, [np.asarray(x) for x in jax.tree_util.tree_leaves(chain)]
+
+
+@pytest.mark.parametrize("case", sorted(OPTIM_CASES))
+def test_rmsprop_adagrad_adadelta_match_the_jax_chain(case):
+    """Three steps of the port's optimizer against the JAX make_optimizer
+    chain from the same params and gradients: params and every state leaf
+    (the chain laid out as the JAX package's, EmptyStates included) within
+    rtol 1e-5 / atol 1e-7."""
+    jopt, topt, tree, grads = _optim_case(case)
+    jtx, ttx = j_optim.make_optimizer(jopt), t_optim.make_optimizer(topt)
+    jp, js = tree, jtx.init(tree)
+    tp = params_from_jax(tree)
+    ts = ttx.init(tp)
+    for g in grads:
+        d, js = jtx.update(g, js, jp)
+        jp = j_optim.apply_updates(jp, d, 0.1)
+        d, ts = ttx.update(params_from_jax(g), ts, tp)
+        tp = t_optim.apply_updates(tp, d, 0.1)
+    for path, a, b in _pairs(_np_tree(jp), tp):
+        _close(b, a, rtol=1e-5, atol=1e-7, msg=path)
+    jnames, jleaves = _chain_leaves(js)
+    tnames, tleaves = _chain_leaves(opt_state_to_jax(ts, topt))
+    assert tnames == jnames and len(tleaves) == len(jleaves) >= 2
+    for k, (a, b) in enumerate(zip(jleaves, tleaves)):
+        assert a.dtype == b.dtype and a.shape == b.shape, (k, a.dtype, b.dtype)
+        np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-7, err_msg=f"state leaf {k}")
+    assert max(np.abs(b).max() for b in tleaves if b.dtype == np.float32) > 1e-3
+
+
+@pytest.mark.parametrize("case", sorted(OPTIM_CASES))
+def test_rmsprop_adagrad_adadelta_triples_load_both_ways(tmp_path, case):
+    """A port-written optimizer file after two steps is the JAX package's
+    own: its load_checkpoint reads it, adopt_structure takes it onto
+    tx.init's structure, and a third JAX step from it equals the port's
+    third; the reverse from a JAX-written file. rtol 1e-5 / atol 1e-7."""
+    from recurrent_fusion_network_torch.convert import params_to_jax
+    from recurrent_fusion_network_torch.training import checkpoint as t_ckpt
+    from recurrent_fusion_network_tpu.training import checkpoint as j_ckpt
+
+    jopt, topt, tree, grads = _optim_case(case)
+    jtx, ttx = j_optim.make_optimizer(jopt), t_optim.make_optimizer(topt)
+    jp, js = tree, jtx.init(tree)
+    tp = params_from_jax(tree)
+    ts = ttx.init(tp)
+    for g in grads[:2]:
+        d, js = jtx.update(g, js, jp)
+        jp = j_optim.apply_updates(jp, d, 0.1)
+        d, ts = ttx.update(params_from_jax(g), ts, tp)
+        tp = t_optim.apply_updates(tp, d, 0.1)
+    t_ckpt.save_checkpoint(str(tmp_path), "port", 0, params=params_to_jax(tp),
+                           opt_state=opt_state_to_jax(ts, topt))
+    j_ckpt.save_checkpoint(str(tmp_path), "jax", 0, params=jp, opt_state=js)
+
+    # the JAX package resumes the port's file and the port the JAX package's
+    jp2, js2, _ = j_ckpt.load_checkpoint(str(tmp_path), "port", 0, best=False)
+    js2 = j_ckpt.adopt_structure(jtx.init(tree), js2)
+    assert jax.tree_util.tree_structure(js2) == jax.tree_util.tree_structure(js)
+    ts2 = opt_state_from_jax(t_ckpt.load_optimizer(str(tmp_path), "jax", 0, best=False))
+    assert type(ts2) is type(ts) and t_optim.state_fits(ts2, ttx)
+    tp2 = params_from_jax(t_ckpt.load_checkpoint(str(tmp_path), "jax", 0, best=False)[0])
+    d, js2 = jtx.update(grads[2], js2, jp2)
+    jp2 = j_optim.apply_updates(jp2, d, 0.1)
+    d, ts2 = ttx.update(params_from_jax(grads[2]), ts2, tp2)
+    tp2 = t_optim.apply_updates(tp2, d, 0.1)
+    for path, a, b in _pairs(_np_tree(jp2), tp2):
+        _close(b, a, rtol=1e-5, atol=1e-7, msg=path)
+    jnames, jleaves = _chain_leaves(js2)
+    tnames, tleaves = _chain_leaves(opt_state_to_jax(ts2, topt))
+    assert tnames == jnames
+    for k, (a, b) in enumerate(zip(jleaves, tleaves)):
+        np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-7, err_msg=f"state leaf {k}")
 
 
 # ------------------------------------------------------------- train loop
@@ -514,17 +616,25 @@ def test_arch_check_resolves_auto_tied_keys():
 
 def test_train_evaluates_and_writes_triples_at_boundaries_and_raises_for_remat(tmp_path):
     """train() evaluates at iterations 2 and 4 and writes the triple there;
-    --use_remat raises."""
+    with --use_remat (it once raised) under either policy, and dropout on,
+    it trains to the same losses and params as without, bit for bit."""
     _, topt, loader = _synthetic(save_checkpoint_every=2)
     topt.checkpoint_path, topt.id = str(tmp_path), "b"
     topt.eval_results_dir = str(tmp_path / "eval_results")
     infos = t_train(topt, loader, max_iterations=5, log_fn=lambda *_: None)
     assert infos["iter"] == 5 and sorted(infos["val_result_history"]) == [2, 4]
     assert os.path.exists(tmp_path / "model_b_0.pkl")
-    _, topt, loader = _synthetic()
-    topt.use_remat = 1
-    with pytest.raises(NotImplementedError, match="remat"):
-        t_train(topt, loader, max_iterations=1, log_fn=lambda *_: None)
+    runs = []
+    for remat, policy in ((0, "save_ctx"), (1, "save_ctx"), (1, "full")):
+        _, topt, loader = _synthetic()
+        topt.drop_prob_lm, topt.drop_prob_fusion = 0.5, 0.2
+        topt.use_remat, topt.remat_policy = remat, policy
+        runs.append(t_train(topt, loader, max_iterations=2, log_fn=lambda *_: None))
+    for other in runs[1:]:
+        assert other["loss_history"] == runs[0]["loss_history"]
+        for a, b in zip(tree_leaves(runs[0]["final_params"]),
+                        tree_leaves(other["final_params"])):
+            assert torch.equal(a, b)
 
 
 def test_train_needs_cuda_unless_the_cpu_is_asked():
@@ -586,7 +696,7 @@ def test_scheduled_sampling_properties():
     seq[:, 0] = 0
     seen = []
 
-    def step(xt, state):
+    def step(xt, state, rand):
         seen.append(xt.clone())
         lp = torch.full((B, V), -1e4)
         lp[torch.arange(B), (xt + 1) % V] = 0.0  # next token is certain
