@@ -147,7 +147,36 @@ Phases, in order; any failure exits non-zero and prints no result line:
               --load_lr 1 from its best triple (f32, 51 x 5, iterations
               11..16, the boundary at 16); exact launches, finite metrics.
               Phase 8's, 10's and 11's CLI shapes are then checked against
-              the plain versions as in phase 8.
+              the plain versions as in phase 8;
+ 12. raw images: (a) the five runbook backbones at their native geometry
+              (resnet101 448 px -> 14 x 14, densenet161 224 -> 7 x 7,
+              inception_v3 / inception_v4 / inception_resnet_v2 299 -> 8 x 8),
+              random weights from a seeded generator: fc and att on the card
+              (cuDNN TF32 off, scoped) against the same backbone on the CPU
+              at B = 2, max |diff| / max |CPU| within 1e-3; the same with TF32
+              on; ms per B = 16 batch with TF32 off and on (CUDA events),
+              images/s, the peak GB above the weights, the host's ms to
+              queue one forward; the bound 2 x MACs / 67 TFLOP/s (f32) and /
+              495 TFLOP/s (TF32), MACs counted from the convolutions' shapes
+              on the meta device; the forward kernel against its plain
+              version at ReviewNet's sites on the resnet grid (8 review steps
+              at 16 x 196 x 2048, 16 beam steps at 48 x 8 x 512; f32 and
+              bf16); (b) under build/: 64 seeded JPEGs (32 at 448 x 448, 32
+              of mixed sizes) and a seeded torchvision-layout resnet101
+              state dict; the extract CLI (resnet101, --variants all) packed
+              in 64-image runs, its rows against an in-process forward of
+              the same images, then sharded (equal rows), then a SIGTERM
+              while the third chunk decodes and the same command again (the
+              same bytes as the uninterrupted run); images/s, the host's
+              decode / resize share; (c) ShowTell and ReviewNet triples on
+              the resnet features at published widths (vocab 9487), eval
+              --image_folder --backbone_weights on the 64 JPEGs: images/s,
+              launches 24 per beam-3 batch (ReviewNet), none (ShowTell);
+              (d) serve --backbone_weights over the ReviewNet triple (f32):
+              32 concurrent POST /caption_image of the 448 x 448 JPEGs,
+              captions equal to (c)'s for the same files, latency p50 / p95,
+              launches 24 per decoded batch. Counters reset just before and
+              read just after each run; every launch's shape is one checked.
 The line before the last is the kernels JSON, the last line the device JSON.
 """
 
@@ -158,6 +187,8 @@ import io
 import json
 import math
 import os
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -2667,6 +2698,490 @@ def phase11(torch, aa, model, card, recorder):
     return out
 
 
+# ------------------------------------------------------------ 12. raw images
+
+BACKBONES = (("resnet101", 448, 14), ("densenet161", 224, 7), ("inception_v3", 299, 8),
+             ("inception_v4", 299, 8), ("inception_resnet_v2", 299, 8))
+TF32_OPS_PER_S = 495e12  # H100 SXM, dense TF32
+BACKBONE_CHECK_ROWS, BACKBONE_ROWS, BACKBONE_REPS = 2, 16, 5
+# card (TF32 off) vs CPU, both f32: max |card - CPU| / max |CPU| of fc and of
+# att, sums of up to 4,608 products in another order through 100-470 convs
+BACKBONE_TOL = 1e-3
+RAW_IMAGES, RAW_NATIVE = 64, 32  # seeded JPEGs; the first RAW_NATIVE at 448 x 448
+RAW_BATCH, RAW_REQUESTS = 16, 32
+RAW_FREE_GB = 5  # 1.0 GB a packed store of the 10 variants, three of them at most
+RAW_RESIDUAL_SCALE = 0.2  # bn3 weights of the seeded resnet101 (bounded activations)
+RAW_SIGTERM_AT = 40  # the image whose decode brings the SIGTERM (in the third chunk)
+
+
+def conv_macs(torch, raw, shapes, image_size):
+    """Multiply-adds of one image through a backbone, counted from the
+    shapes of its convolutions (a forward on the meta device)."""
+    from unittest import mock
+
+    import torch.nn.functional as F
+
+    real, macs = F.conv2d, [0]
+
+    def counting(x, w, *a, **kw):
+        out = real(x, w, *a, **kw)
+        macs[0] += out.numel() * w.shape[1] * w.shape[2] * w.shape[3]
+        return out
+
+    meta = {k: torch.empty(s, device="meta") for k, s in shapes.items()}
+    with mock.patch.object(F, "conv2d", counting):
+        raw(meta, torch.empty(1, image_size, image_size, 3, device="meta"))
+    return macs[0]
+
+
+def rel_err(a, b):
+    return ((a.float().cpu() - b.float().cpu()).abs().max() / b.float().abs().max()).item()
+
+
+def backbone_phase(torch, card):
+    """Phase 12 (a): the five runbook encoders at their native geometry,
+    random weights from a seeded generator: fc and att on the card (TF32
+    off) against the same backbone on the CPU at B = 2; ms per B = 16
+    batch with TF32 off (the extraction path's setting) and on, images/s,
+    the peak GB above the weights, the host's ms to queue one forward; the
+    bound 2 x MACs / peak rate (f32 67 TFLOP/s, TF32 495)."""
+    from recurrent_fusion_network_torch.data.feature_extraction import backbones
+
+    rows = []
+    for arch, size, grid in BACKBONES:
+        raw, shapes, fc_dim, att_dim = backbones.trunk(arch, grid)
+        params, feats, _, _ = backbones.build_backbone(arch, grid, device="cpu")
+        x = torch.rand(BACKBONE_CHECK_ROWS, size, size, 3,
+                       generator=torch.Generator().manual_seed(30))
+        t0 = time.perf_counter()
+        fc_cpu, att_cpu = feats(params, x)
+        cpu_s = time.perf_counter() - t0
+        params = {k: v.to(DEVICE) for k, v in params.items()}
+        xd = x.to(DEVICE)
+        with torch.inference_mode():
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                fc_off, att_off = raw(params, xd)
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+                fc_on, att_on = raw(params, xd)
+        err = max(rel_err(fc_off, fc_cpu), rel_err(att_off, att_cpu))
+        tf32_diff = max(rel_err(fc_on, fc_off), rel_err(att_on, att_off))
+        if fc_off.shape != (BACKBONE_CHECK_ROWS, fc_dim) or \
+                att_off.shape != (BACKBONE_CHECK_ROWS, grid, grid, att_dim):
+            raise AssertionError(f"{arch}: fc {tuple(fc_off.shape)}, att {tuple(att_off.shape)}")
+        if not (err <= BACKBONE_TOL and torch.isfinite(fc_off).all() and
+                torch.isfinite(att_off).all()):
+            raise AssertionError(f"{arch}: card vs CPU max rel err {err:.3e} > {BACKBONE_TOL}")
+        xb = torch.rand(BACKBONE_ROWS, size, size, 3, device=DEVICE,
+                        generator=torch.Generator(device=DEVICE).manual_seed(31))
+        times = {}
+        for tf32 in (False, True):
+            def call():
+                with torch.inference_mode(), \
+                        torch.backends.cudnn.flags(enabled=True, allow_tf32=tf32):
+                    raw(params, xb)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ms = event_ms(torch, call, [()], reps=BACKBONE_REPS, repeats=3)
+            peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+            host = []  # the host's time to queue one forward, the card still busy
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                call()
+                host.append((time.perf_counter() - t0) * 1e3)
+            times[tf32] = (ms, peak, statistics.median(host))
+        macs = conv_macs(torch, raw, shapes, size)
+        flops = 2 * macs * BACKBONE_ROWS
+        row = dict(arch=arch, image_size=size, grid=grid, fc_dim=fc_dim, att_dim=att_dim,
+                   params=sum(v.numel() for v in params.values()),
+                   max_rel_err_vs_cpu=err, tf32_max_rel_diff=tf32_diff, cpu_s=cpu_s,
+                   macs_per_image=macs, ms=times[False][0], ms_tf32=times[True][0],
+                   host_ms=times[False][2], host_ms_tf32=times[True][2],
+                   images_per_s=BACKBONE_ROWS / times[False][0] * 1e3,
+                   images_per_s_tf32=BACKBONE_ROWS / times[True][0] * 1e3,
+                   params_gb=sum(v.numel() for v in params.values()) * 4 / 1e9,
+                   peak_gb=times[False][1], peak_gb_tf32=times[True][1],
+                   bound_ms=flops / F32_OPS_PER_S * 1e3,
+                   bound_ms_tf32=flops / TF32_OPS_PER_S * 1e3)
+        log(f"raw images backbone {arch} {size} px -> {grid}x{grid}: fc {fc_dim}, att "
+            f"{att_dim}, {row['params']} params; card (TF32 off) vs CPU max rel err {err:.3e} "
+            f"(tol {BACKBONE_TOL}), TF32 on vs off {tf32_diff:.3e}; B={BACKBONE_ROWS} "
+            f"forward {row['ms']:.2f} ms ({row['images_per_s']:.1f} images/s, "
+            f"{row['peak_gb']:.2f} GB peak above the {row['params_gb']:.2f} GB of weights; "
+            f"the host queues it in {row['host_ms']:.2f} ms), TF32 {row['ms_tf32']:.2f} ms "
+            f"({row['images_per_s_tf32']:.1f} images/s, {row['peak_gb_tf32']:.2f} GB; host "
+            f"{row['host_ms_tf32']:.2f} ms); "
+            f"{macs / 1e9:.3f} GMAC per image, bound {row['bound_ms']:.2f} ms f32 / "
+            f"{row['bound_ms_tf32']:.2f} ms TF32 (bound/ms {row['bound_ms'] / row['ms']:.3f} / "
+            f"{row['bound_ms_tf32'] / row['ms_tf32']:.3f}) on {card}")
+        rows.append(row)
+        del params, xd, xb, fc_off, att_off, fc_on, att_on
+        torch.cuda.empty_cache()
+    return rows
+
+
+def write_raw_images(root):
+    """RAW_IMAGES seeded JPEGs with COCO names: the first RAW_NATIVE at
+    448 x 448 (both resizes leave them as they are), the rest of mixed sizes
+    from 200 to 640 px; smooth content (seeded noise upsampled)."""
+    import numpy as np
+    from PIL import Image
+
+    g = np.random.default_rng(40)
+    sizes = [(448, 448)] * RAW_NATIVE + [(int(g.integers(200, 641)), int(g.integers(200, 641)))
+                                         for _ in range(RAW_IMAGES - RAW_NATIVE)]
+    names = []
+    for i, (h, w) in enumerate(sizes):
+        small = (g.random((h // 16 + 2, w // 16 + 2, 3)) * 255).astype(np.uint8)
+        name = f"COCO_val2014_{100000 + i:012d}.jpg"
+        Image.fromarray(small).resize((w, h), Image.BILINEAR).save(os.path.join(root, name),
+                                                                   quality=90)
+        names.append(name)
+    return names
+
+
+def write_resnet101_weights(torch, path):
+    """A seeded resnet101 state dict in torchvision's layout (its 1000-way
+    classifier too), each residual branch's last BN scaled by
+    RAW_RESIDUAL_SCALE so that activations stay bounded."""
+    from recurrent_fusion_network_torch.data.feature_extraction import resnet
+
+    g = torch.Generator().manual_seed(41)
+    sd = resnet.resnet_init(g, resnet.ResNetConfig.resnet101())
+    sd = {k: v * RAW_RESIDUAL_SCALE if k.endswith("bn3.weight") else v for k, v in sd.items()}
+    sd["fc.weight"] = torch.randn(1000, 2048, generator=g) * 0.01
+    sd["fc.bias"] = torch.zeros(1000)
+    torch.save(sd, path)
+
+
+def extract_phase(torch, card, root, images, weights):
+    """Phase 12 (b): the extract CLI, resnet101 with --variants all, packed,
+    then sharded; rows against an in-process forward of the same images; a
+    SIGTERM mid-run and a resume to the same bytes; images/s and the
+    host's decode / resize share."""
+    from unittest import mock
+
+    import numpy as np
+
+    from recurrent_fusion_network_torch.data.dataset import PackedFeatureSource
+    from recurrent_fusion_network_torch.data.feature_extraction import extract
+    from recurrent_fusion_network_torch.data.feature_extraction.augment import make_variant
+    from recurrent_fusion_network_torch.data.feature_extraction.backbones import build_backbone
+    from recurrent_fusion_network_torch.data.sharded import ShardedFeatureSource
+    from recurrent_fusion_network_torch.feat_registry import VARIANTS
+
+    names = sorted(os.listdir(images))
+    ids = [extract.image_id_from_name(n) for n in names]
+    real_load = extract.load_image
+    decode_s = []
+
+    def timed_load(path, size):
+        t0 = time.perf_counter()
+        try:
+            return real_load(path, size)
+        finally:
+            decode_s.append(time.perf_counter() - t0)
+
+    def run(out, *extra, load=timed_load):
+        argv = ["--images_dir", images, "--output_dir", out, "--arch", "resnet101",
+                "--variants", "all", "--torch_weights", weights, "--batch_size",
+                str(RAW_BATCH), *extra]
+        decode_s.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mock.patch.object(extract, "load_image", load), \
+                contextlib.redirect_stdout(io.StringIO()) as printed:
+            extract.main(argv)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, sum(decode_s), printed.getvalue()
+
+    packed = os.path.join(root, "packed")
+    wall, dec, _ = run(packed)
+    out = dict(images=RAW_IMAGES, variants=len(VARIANTS), wall_s=wall, decode_s=dec,
+               decode_share=dec / wall, images_per_s=RAW_IMAGES / wall,
+               image_variants_per_s=RAW_IMAGES * len(VARIANTS) / wall)
+    src = PackedFeatureSource(packed)
+    if json.load(open(os.path.join(packed, "ids.json"))) != ids:
+        raise AssertionError("extract: ids.json is not the images' ids")
+
+    # rows against an in-process forward of the same images, chunk by chunk
+    params, feats, _, _ = build_backbone("resnet101", 14, weights)
+    worst, bitwise = 0.0, True
+    for start in range(0, RAW_IMAGES, RAW_BATCH):
+        imgs = extract.load_batch(images, names[start:start + RAW_BATCH], 448,
+                                  torch.device(DEVICE))
+        for variant in VARIANTS:
+            fc, att = feats(params, make_variant(imgs, variant))
+            want_fc, want_att = fc.cpu().numpy(), att.reshape(len(imgs), 196, 2048).cpu().numpy()
+            for i, image_id in enumerate(ids[start:start + RAW_BATCH]):
+                got_fc, got_att = src.load(image_id, variant)
+                bitwise &= np.array_equal(got_fc, want_fc[i]) and np.array_equal(got_att,
+                                                                                  want_att[i])
+                worst = max(worst, float(np.abs(got_fc - want_fc[i]).max()
+                                         / np.abs(want_fc[i]).max()),
+                            float(np.abs(got_att - want_att[i]).max()
+                                  / np.abs(want_att[i]).max()))
+    del params, src
+    torch.cuda.empty_cache()
+    if worst > 1e-5:
+        raise AssertionError(f"extract: rows differ from the in-process forward by {worst:.3e}")
+    out.update(rows_max_rel_err=worst, rows_bitwise=bitwise)
+
+    sharded = os.path.join(root, "sharded")
+    out["sharded_wall_s"] = run(sharded, "--output_format", "sharded", "--shard_size",
+                                str(RAW_BATCH))[0]
+    ps, ss = PackedFeatureSource(packed), ShardedFeatureSource(sharded)
+    sharded_equal = all(np.array_equal(a, b) for image_id in ids for v in VARIANTS
+                        for a, b in zip(ps.load(image_id, v), ss.load(image_id, v)))
+    if not sharded_equal:
+        raise AssertionError("extract: the sharded store's rows differ from the packed store's")
+    del ps, ss
+
+    # SIGTERM while the third chunk decodes, then the same command again
+    resumed = os.path.join(root, "resumed")
+
+    def sigterm_load(path, size):
+        if os.path.basename(path) == names[RAW_SIGTERM_AT]:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return timed_load(path, size)
+
+    _, _, printed = run(resumed, load=sigterm_load)
+    marker = json.load(open(os.path.join(resumed, "progress.json")))["done"]
+    stopped_at = (RAW_SIGTERM_AT // RAW_BATCH + 1) * RAW_BATCH
+    if marker != stopped_at or os.path.exists(os.path.join(resumed, "ids.json")) \
+            or "preempted" not in printed:
+        raise AssertionError(f"extract: after SIGTERM the marker reads {marker}, not "
+                             f"{stopped_at}, or ids.json exists")
+    _, _, printed = run(resumed)
+    if f"resuming extraction at row {stopped_at}" not in printed:
+        raise AssertionError(f"extract: the second run did not resume: {printed[:200]}")
+    same = sorted(f for f in os.listdir(packed) if f != "progress.json")
+    for f in same:
+        with open(os.path.join(packed, f), "rb") as a, open(os.path.join(resumed, f), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"extract: {f} after the resume differs from the "
+                                     f"uninterrupted run's")
+    for d in (packed, sharded, resumed):
+        shutil.rmtree(d)
+    out.update(sigterm_marker=marker, resumed_files_equal=len(same))
+    log(f"raw images extract: resnet101 448 px, {RAW_IMAGES} JPEGs x {len(VARIANTS)} variants "
+        f"packed in {wall:.2f} s ({out['images_per_s']:.1f} images/s, "
+        f"{out['image_variants_per_s']:.1f} image-variants/s; host decode + resize "
+        f"{dec:.2f} s, {out['decode_share']:.3f} of the run), sharded in "
+        f"{out['sharded_wall_s']:.2f} s; rows vs the in-process forward max rel err "
+        f"{worst:.3e} (bitwise {bitwise}); sharded = packed; SIGTERM at image "
+        f"{RAW_SIGTERM_AT} -> marker {marker}, resumed to the same bytes ({len(same)} files) "
+        f"on {card}")
+    return out
+
+
+def raw_image_models(torch, root):
+    """Checkpoint triples at published widths on the registry's resnet
+    features (fc 2048, att 196 x 2048), random weights from a seeded
+    generator: ShowTell (E = R = 512, 1 layer) and ReviewNet (H = 512, 8
+    review steps, 1000 top words, tied keys), vocab 9487, 16 tokens. ->
+    {run id: launches of additive_attention_fwd per beam-3 batch}."""
+    from recurrent_fusion_network_torch.config import parse_opt
+    from recurrent_fusion_network_torch.convert import params_to_jax
+    from recurrent_fusion_network_torch.models import setup
+    from recurrent_fusion_network_torch.training.checkpoint import save_checkpoint
+    from recurrent_fusion_network_torch.training.train_loop import snapshot_opt
+
+    vocab = {str(i): f"w{i}" for i in range(1, 9488)}
+    common = ["--feature_type", "resnet", "--rnn_size", str(HID), "--input_encoding_size",
+              str(HID)]
+    per_batch = {}
+    for run_id, argv in (("show_tell_resnet", ["--caption_model", "show_tell",
+                                               "--num_layers", "1"]),
+                         ("review_net_resnet", ["--caption_model", "review_net",
+                                                "--att_hid_size", str(HID),
+                                                "--num_review_steps", "8",
+                                                "--top_words_count", "1000"])):
+        opt = parse_opt(common + argv)
+        opt.vocab_size, opt.seq_length = len(vocab), 16
+        model = setup(opt)
+        params = model.init_params(torch.Generator(device=DEVICE).manual_seed(50), device=DEVICE)
+        save_checkpoint(root, run_id, 0, params=params_to_jax(params),
+                        infos={"opt": snapshot_opt(opt), "vocab": vocab}, best=True)
+        per_batch[run_id] = model_launches(model)[0]
+        del params
+    return per_batch
+
+
+def raw_image_sites(batch):
+    """Forward sites of ReviewNet on the resnet grid per beam-3 batch of
+    ``batch`` images: the 8 review steps over 196 x 2048, the 16 beam
+    steps over the 8 thought vectors at batch x 3 rows."""
+    return [("review_net_resnet_review", 1, batch, 196, 2048,
+             {"image_folder": 8, "caption_image": 8}),
+            ("review_net_resnet_decoder_beam", 1, batch * BEAM, 8, HID,
+             {"image_folder": 16, "caption_image": 16})]
+
+
+def eval_folder_phase(torch, card, counters, recorder, root, images, weights, per_batch):
+    """Phase 12 (c): eval --image_folder on the JPEGs with the seeded
+    resnet101 weights, per triple: images/s and the forward kernel's
+    launches (24 per beam-3 batch for ReviewNet, none for ShowTell)."""
+    from recurrent_fusion_network_torch import eval as eval_cli
+
+    out = {}
+    n_batches = -(-RAW_IMAGES // RAW_BATCH)
+    for run_id, launches_per_batch in per_batch.items():
+        argv = ["--model_path", root, "--load_model_id", run_id, "--image_folder", images,
+                "--beam_size", str(BEAM), "--batch_size", str(RAW_BATCH), "--backbone_weights",
+                weights]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters(counters)
+        t0 = time.perf_counter()
+        with recorder.run(f"image_folder_{run_id}"), \
+                contextlib.redirect_stdout(io.StringIO()) as printed:
+            preds = eval_cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counters(counters, f"eval --image_folder {run_id}")
+        expect = (launches_per_batch * n_batches, 0)
+        if launches != expect or recorder.totals(f"image_folder_{run_id}") != expect:
+            raise AssertionError(f"eval --image_folder {run_id}: launches {launches}, expected "
+                                 f"{expect}")
+        lines = printed.getvalue().splitlines()
+        if len(preds) != RAW_IMAGES or sorted(p["file"] for p in preds) != sorted(
+                os.listdir(images)) or not all(f"{p['file']}\t{p['caption']}" in lines
+                                               for p in preds):
+            raise AssertionError(f"eval --image_folder {run_id}: {len(preds)} captions")
+        out[run_id] = dict(wall_s=wall, images_per_s=RAW_IMAGES / wall, launches=launches,
+                           distinct_captions=len({p["caption"] for p in preds}),
+                           peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                           captions={p["file"]: p["caption"] for p in preds})
+        log(f"raw images eval --image_folder {run_id}: {RAW_IMAGES} images in {wall:.2f} s "
+            f"({RAW_IMAGES / wall:.1f} images/s, the CLI's whole run), "
+            f"{out[run_id]['distinct_captions']} distinct captions, e.g. "
+            f"{preds[0]['caption']!r}; launches {launches} ({launches_per_batch} per beam-3 "
+            f"batch); peak {out[run_id]['peak_gb']:.2f} GB on {card}")
+    return out
+
+
+def caption_image_phase(torch, card, counters, recorder, root, images, weights, per_batch,
+                        want):
+    """Phase 12 (d): serve --backbone_weights over the ReviewNet triple:
+    RAW_REQUESTS concurrent POST /caption_image of the 448 x 448 JPEGs; their
+    captions against eval --image_folder's for the same files, latency p50
+    / p95, and launches 24 per decoded batch."""
+    import http.client
+
+    from recurrent_fusion_network_torch.config import parse_serve_opt
+    from recurrent_fusion_network_torch.decoding.http_serve import run_server
+    from recurrent_fusion_network_torch.serve import build_service
+
+    files = sorted(os.listdir(images))[:RAW_REQUESTS]
+    bodies = [open(os.path.join(images, f), "rb").read() for f in files]
+    with contextlib.redirect_stdout(io.StringIO()):
+        svc = build_service(parse_serve_opt([
+            "--model_path", root, "--load_model_id", "review_net_resnet", "--serve_dtype",
+            "float32", "--beam_size", str(BEAM), "--serve_batch_size", str(RAW_BATCH),
+            "--backbone_weights", weights]))
+    httpd = None
+    replies, latency = [None] * RAW_REQUESTS, [None] * RAW_REQUESTS
+    try:
+        svc.warmup()
+        httpd = run_server(svc, "127.0.0.1", 0)
+        port = httpd.server_address[1]
+
+        def client(i):
+            try:
+                conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+                t0 = time.perf_counter()
+                conn.request("POST", "/caption_image", body=bodies[i],
+                             headers={"Content-Type": "image/jpeg"})
+                r = conn.getresponse()
+                replies[i] = (r.status, json.loads(r.read()))
+                latency[i] = time.perf_counter() - t0
+                conn.close()
+            except Exception as e:  # recorded, then judged below
+                replies[i] = (None, repr(e))
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(RAW_REQUESTS)]
+        reset_counters(counters)
+        t0 = time.perf_counter()
+        with recorder.run("caption_image"):
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        launches = read_counters(counters, "/caption_image")
+        stats = dict(svc.server.stats)
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+        svc.close()
+        if httpd is not None:
+            httpd.server_close()
+    bad = [(f, r) for f, r in zip(files, replies) if r is None or r[0] != 200]
+    if bad:
+        raise AssertionError(f"/caption_image: {len(bad)} bad replies, e.g. {bad[0]}")
+    expect = (per_batch["review_net_resnet"] * stats["batches"], 0)
+    if launches != expect or recorder.totals("caption_image") != expect:
+        raise AssertionError(f"/caption_image: launches {launches} over {stats['batches']} "
+                             f"batches, expected {expect}")
+    differ = [f for f, (_, r) in zip(files, replies) if r["caption"] != want[f]]
+    if differ:
+        raise AssertionError(f"/caption_image: {len(differ)} of {RAW_REQUESTS} captions differ "
+                             f"from eval --image_folder's, e.g. {differ[0]}")
+    lat = sorted(x * 1e3 for x in latency)
+    q = statistics.quantiles(lat, n=20)
+    out = dict(requests=RAW_REQUESTS, wall_s=wall, p50_ms=statistics.median(lat), p95_ms=q[18],
+               launches=launches, stats=stats)
+    log(f"raw images /caption_image: {RAW_REQUESTS} concurrent requests in {wall:.3f} s, "
+        f"captions equal to eval --image_folder's for the same files; latency p50 "
+        f"{out['p50_ms']:.1f} ms, p95 {out['p95_ms']:.1f} ms; launches {launches} over "
+        f"{stats['batches']} batches; server stats {stats} on {card}")
+    return out
+
+
+def raw_images(torch, aa, card, counters):
+    """Phase 12: raw images to captions (backbones, the extract CLI, eval
+    --image_folder, /caption_image), on files under build/ deleted when
+    done. -> (results, forward site rows, the phase's shape recorder)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    out = {"backbones": backbone_phase(torch, card)}
+    rows = check_attention_kernel(torch, aa, raw_image_sites(RAW_BATCH),
+                                  (torch.float32, torch.bfloat16))
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    free_gb = shutil.disk_usage(build).free / 1e9
+    if free_gb < RAW_FREE_GB:
+        raise AssertionError(f"raw images: {free_gb:.1f} GB free under {build}, "
+                             f"{RAW_FREE_GB} GB needed")
+    root = tempfile.mkdtemp(prefix="raw_", dir=build)
+    recorder = ShapeRecorder(aa)
+    try:
+        images = os.path.join(root, "images")
+        os.makedirs(images)
+        write_raw_images(images)
+        weights = os.path.join(root, "resnet101.pth")
+        write_resnet101_weights(torch, weights)
+        out["extract"] = extract_phase(torch, card, root, images, weights)
+        per_batch = raw_image_models(torch, root)
+        out["eval"] = eval_folder_phase(torch, card, counters, recorder, root, images, weights,
+                                        per_batch)
+        out["serve"] = caption_image_phase(torch, card, counters, recorder, root, images,
+                                           weights, per_batch,
+                                           out["eval"]["review_net_resnet"]["captions"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # every launch of the two runs was at a shape checked above
+    checked = {("float32", G, N, A, D) for _, G, N, A, D, _ in raw_image_sites(RAW_BATCH)}
+    if set(recorder.fwd) - checked or recorder.bwd:
+        raise AssertionError(f"raw images: launches at unchecked shapes {set(recorder.fwd)}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"raw images: phase 12 in {out['seconds']:.2f} s")
+    return out, rows
+
+
 def path_sums(site_rows, path):
     """ms, plain_ms and bound_ms summed over the launches of one path (one
     beam-3 batch, one train step or one SCST iteration), and bound / ms of
@@ -2806,6 +3321,16 @@ def main():
     p11_fwd = sum(f for f, _ in p11_launches.values())
     p11_bwd = sum(b for _, b in p11_launches.values())
 
+    # ---- 12. raw images: the backbones, the extract CLI, eval --image_folder,
+    # /caption_image
+    p12, raw_rows = raw_images(torch, aa, card, [aa])
+    p12_launches = {f"image_folder_{run}": r["launches"][0] for run, r in p12["eval"].items()}
+    p12_launches["caption_image"] = p12["serve"]["launches"][0]
+    p12_fwd = sum(p12_launches.values())
+    raw_batch = dict(path_sums([r for r in raw_rows if r["dtype"] == "float32"], "image_folder"),
+                     dtype="float32")
+    torch.cuda.empty_cache()
+
     # both kernels against their plain versions at every shape of phases 8,
     # 10 and 11's CLI runs
     t0 = time.perf_counter()
@@ -2869,7 +3394,7 @@ def main():
         if (remat_fwd[p]["launches"] * steps, remat_bwd[p]["launches"] * steps) \
                 != p11_launches[p]:
             raise AssertionError(f"{p}: the train sites do not add up to phase 11's launches")
-    rows = rows + scst_rows + drv_rows + rn_rows
+    rows = rows + scst_rows + drv_rows + rn_rows + raw_rows
     bwd_rows = bwd_rows + scst_bwd_rows + drv_bwd_rows + rn_bwd_rows
     kernels = [{
         "name": "additive_attention_fwd",
@@ -2879,7 +3404,7 @@ def main():
         "launches": launches["additive_attention"]
         + trained["launches"]["additive_attention_fwd"]
         + scst_launches["additive_attention_fwd"] + driver_fwd + sum(model_fwd.values())
-        + fleet_fwd + p11_fwd,
+        + fleet_fwd + p11_fwd + p12_fwd,
         # "eval": the eval CLI's run (one batch of 100 test images);
         # "drivers": all of phase 8's CLI runs, their eval batches included;
         # "<model>_<path>": phase 9's HTTP serving, XE and SCST runs;
@@ -2892,7 +3417,8 @@ def main():
                              "eval": driven["eval"]["launches"][0],
                              "drivers": driver_fwd, **model_fwd,
                              **{run: f for run, (f, _) in fleet_launches.items()},
-                             **{run: f for run, (f, _) in p11_launches.items()}},
+                             **{run: f for run, (f, _) in p11_launches.items()},
+                             **p12_launches},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         # per beam-3 bf16 batch at B = 512: the sum over its 64 launches
         "ms": serve["ms"],
@@ -2908,10 +3434,12 @@ def main():
         # iteration at B = 256 (50)
         # phase 11: per remat'd bf16 step at B = 512 (130 launches under
         # "full", 65 under "save_ctx"), and over the data front's XE and
-        # SCST runs on the sharded stores
+        # SCST runs on the sharded stores; phase 12: per f32 beam-3 batch of
+        # 16 images of ReviewNet on the resnet grid (24 launches), in eval
+        # --image_folder and /caption_image alike
         "by_path": {"serve": serve, "train": train_fwd, "scst": scst_fwd, "eval": eval_fwd,
                     "drivers": drivers_fwd, **rn_fwd, **fleet_fwd_sums, **remat_fwd,
-                    **front_fwd},
+                    **front_fwd, "raw_image_batch": raw_batch},
         "ok": all(r["ok"] and r["bitwise_repeat"] for r in rows),
         "sites": rows,
     }, {
@@ -2951,6 +3479,9 @@ def main():
     log("models summary: " + json.dumps(driven_models))
     log("fleets summary: " + json.dumps(fleet))
     log("phase 11 summary: " + json.dumps(p11))
+    for r in p12["eval"].values():
+        r.pop("captions")
+    log("phase 12 summary: " + json.dumps(p12))
     for k in kernels:
         for path, sums in k["by_path"].items():
             log(f"kernel {k['name']} per {sums['dtype']} {path} path ({sums['launches']} "

@@ -251,10 +251,11 @@ def is_jax_key(key: str) -> bool:
 
 
 def parse_serve_opt(argv: Optional[Sequence[str]] = None) -> Options:
-    """The serve CLI's flags: the model, checkpoint and serving options;
-    --port is the HTTP front end's."""
+    """The serve CLI's flags: the model, checkpoint and serving options and
+    the /caption_image backbone's; --port is the HTTP front end's."""
     parser = argparse.ArgumentParser(description="RFNet caption serving (PyTorch)")
-    _add_flags(parser, {**_defaults(), "port": 8080})
+    _add_flags(parser, {**_defaults(), "port": 8080, "backbone_weights": "",
+                        "backbone_arch": "resnet101"})
     return Options(**vars(parser.parse_args(argv)))
 
 
@@ -293,7 +294,6 @@ _UNPORTED = (
     ("num_dp_devices", lambda v: v > 1, "the data-parallel mesh", "M10"),
     ("num_mp_devices", lambda v: v > 1, "the dp x mp mesh", "M10"),
     ("async_opt", lambda v: bool(v), "the --async_opt data-parallel mapping", "M10"),
-    ("image_folder", lambda v: bool(v), "raw-image eval (eval_folder)", "M12"),
 )
 
 

@@ -27,6 +27,9 @@ those classes as the ``Jax*State`` named tuples below, and
 ``opt_state_from_jax`` maps the chain to the port's optimizer states
 (``training/optim.py``); ``params_to_jax`` and ``opt_state_to_jax`` go the
 other way, for the checkpoint writer.
+
+``backbone_params_from_jax`` turns the JAX feature backbones' parameters
+(``data/feature_extraction``) into the port's flat dicts.
 """
 
 from __future__ import annotations
@@ -178,3 +181,109 @@ def opt_state_to_jax(state, opt):
     if isinstance(state, (SgdState, RmspropState)) and state.trace is not None:
         chain.append(JaxTraceState(params_to_jax(state.trace)))
     return tuple(chain)
+
+
+# ---------------------------------------------------------------- backbones
+
+_BN_FROM_JAX = {"weight": "scale", "bias": "bias", "running_mean": "mean", "running_var": "var"}
+
+
+def _oihw(w) -> torch.Tensor:
+    """An HWIO conv weight -> OIHW."""
+    return _to_tensor(np.ascontiguousarray(np.asarray(w).transpose(3, 2, 0, 1)))
+
+
+def _flatten_jax_backbone(arch: str, params) -> dict:
+    """The JAX resnet / densenet trees as {torchvision name: array}, conv
+    weights still HWIO (names ending in "weight" with 4 dims)."""
+    out = {}
+
+    def conv(name, node):
+        out[name + ".weight"] = node["w"]
+
+    def bn(prefix, node):
+        for leaf, key in _BN_FROM_JAX.items():
+            out[f"{prefix}.{leaf}"] = node[key]
+
+    if arch.startswith("resnet"):
+        conv("conv1", params["conv1"])
+        bn("bn1", params["bn1"])
+        for stage in range(1, 5):
+            for b, blk in enumerate(params[f"layer{stage}"]):
+                pre = f"layer{stage}.{b}"
+                for i in (1, 2, 3):
+                    conv(f"{pre}.conv{i}", blk[f"conv{i}"])
+                    bn(f"{pre}.bn{i}", blk[f"bn{i}"])
+                if "downsample" in blk:
+                    conv(f"{pre}.downsample.0", blk["downsample"]["conv"])
+                    bn(f"{pre}.downsample.1", blk["downsample"]["bn"])
+        return out
+    conv("features.conv0", params["conv0"])
+    bn("features.norm0", params["bn0"])
+    bi = 1
+    while f"block{bi}" in params:
+        for li, layer in enumerate(params[f"block{bi}"], start=1):
+            pre = f"features.denseblock{bi}.denselayer{li}"
+            bn(pre + ".norm1", layer["bn1"])
+            conv(pre + ".conv1", layer["conv1"])
+            bn(pre + ".norm2", layer["bn2"])
+            conv(pre + ".conv2", layer["conv2"])
+        if f"trans{bi}" in params:
+            bn(f"features.transition{bi}.norm", params[f"trans{bi}"]["bn"])
+            conv(f"features.transition{bi}.conv", params[f"trans{bi}"]["conv"])
+        bi += 1
+    bn("features.norm5", params["bn_final"])
+    return out
+
+
+def _count_leaves(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_count_leaves(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_count_leaves(v) for v in tree)
+    return 1
+
+
+def backbone_params_from_jax(arch: str, params) -> dict:
+    """A JAX backbone's parameters -> the port's: the resnet and densenet
+    trees (nested dicts, NHWC / HWIO arrays) to flat torchvision-named
+    dicts, the inception flat slim dicts key for key; conv weights HWIO ->
+    OIHW. Every JAX leaf must be consumed and every parameter the port's
+    trunk reads assigned, with its shape."""
+    from .data.feature_extraction import densenet, inception, resnet
+
+    if arch in inception._TRUNKS:
+        expected = inception.param_shapes(arch)
+        flat = dict(params)
+        n_leaves = len(flat)
+        out = {k: _oihw(v) if k.endswith("/w") else _to_tensor(v) for k, v in flat.items()}
+    elif arch.startswith(("resnet", "densenet")):
+        flat = _flatten_jax_backbone(arch, params)
+        n_leaves = _count_leaves(params)
+        out = {k: _oihw(v) if np.ndim(v) == 4 else _to_tensor(v) for k, v in flat.items()}
+        if arch.startswith("resnet"):
+            blocks = tuple(len(params[f"layer{s}"]) for s in range(1, 5))
+            cfg = resnet.ResNetConfig(blocks=blocks, width=out["conv1.weight"].shape[0])
+            expected = resnet.param_shapes(cfg)
+        else:
+            n_blocks = sum(1 for k in params if k.startswith("block"))
+            blocks = tuple(len(params[f"block{b}"]) for b in range(1, n_blocks + 1))
+            layer = params["block1"][0]
+            growth = np.shape(layer["conv2"]["w"])[-1]
+            cfg = densenet.DenseNetConfig(
+                blocks=blocks, growth=growth, init_features=np.shape(params["conv0"]["w"])[-1],
+                bn_size=np.shape(layer["conv1"]["w"])[-1] // growth)
+            expected = densenet.param_shapes(cfg)
+    else:
+        raise ValueError(f"arch not supported: {arch}")
+    if len(flat) != n_leaves:
+        raise ValueError(f"{arch}: {n_leaves - len(flat)} JAX leaves not consumed")
+    extra, missing = sorted(set(out) - set(expected)), sorted(set(expected) - set(out))
+    if extra or missing:
+        raise ValueError(f"{arch}: JAX parameters the port does not read {extra[:3]}, "
+                         f"port parameters not assigned {missing[:3]}")
+    for k, shape in expected.items():
+        if tuple(out[k].shape) != tuple(shape):
+            raise ValueError(f"{arch}: {k} has shape {tuple(out[k].shape)}, the port's "
+                             f"trunk reads {tuple(shape)}")
+    return {k: out[k] for k in expected}

@@ -11,6 +11,9 @@ Endpoints:
                     encoder]} or binary npz (Content-Type application/x-npz
                     or zip magic) with arrays fc_0..fc_{M-1}, att_0..att_{M-1}
                     resp {"caption": str, "logprob": float}
+  POST /caption_image -> body: one image file's bytes (JPEG, PNG, ...);
+                    resp as /caption. Only when the service has a backbone
+                    (serve --backbone_weights) and a single-encoder model.
 A single-encoder model (ShowTell, ReviewNet) takes one of each; ShowTell
 reads no attention features, so its att array may have any width.
 """
@@ -88,21 +91,45 @@ def feature_shapes(model):
     return [model.fc_feat_size], [(1, 1)]
 
 
+def decode_image_bytes(image_bytes: bytes, image_size: int) -> np.ndarray:
+    """An uploaded image -> (1, size, size, 3) f32 in [0, 1]. PIL's default
+    resample, as the JAX package's service resizes (the extract CLI's
+    ``load_image`` asks for BILINEAR)."""
+    from PIL import Image
+
+    img = Image.open(io.BytesIO(image_bytes)).convert("RGB")
+    img = img.resize((image_size, image_size))
+    return np.asarray(img, np.float32)[None] / 255.0
+
+
 class CaptionService:
-    """The batched decode server plus vocab decoding.
+    """The batched decode server plus vocab decoding, and an optional
+    raw-image backbone.
 
     params: the model's tensor tree (moved to ``device`` once here); its
     floating dtype is the compute dtype, and requests are cast to it at
-    submit.
+    submit. backbone: None or (backbone params on ``device``, features_fn,
+    image_size) from ``data/feature_extraction/backbones.build_backbone``.
     """
 
     def __init__(self, model, params, vocab, *, device=None, batch_size: int = 16,
-                 beam_size: int = 3, depth: int = 2, flush_interval: float = 0.005):
+                 beam_size: int = 3, depth: int = 2, flush_interval: float = 0.005,
+                 backbone=None):
         self.device = resolve_device(device)
         self.vocab = vocab
         self.model = model
         self.beam_size = beam_size
         self.batch_size = batch_size
+        if backbone is not None and hasattr(model, "fc_feat_sizes"):
+            # /caption_image extracts ONE backbone's features: against a
+            # multi-encoder model every such request would fail at decode
+            raise ValueError(
+                f"--backbone_weights serves single-encoder models only; "
+                f"{type(model).__name__} expects "
+                f"{len(model.fc_feat_sizes)} encoders (drop the backbone or "
+                f"serve a show_tell/review_net checkpoint)"
+            )
+        self.backbone = backbone
         params = tree_map(lambda x: x.to(self.device), params)
 
         def decode(fcs, atts):
@@ -140,6 +167,17 @@ class CaptionService:
         eos = np.nonzero(toks == 0)[0]
         n = int(eos[0]) + 1 if len(eos) else len(toks)
         return {"caption": caption, "logprob": float(lps[:n].sum())}
+
+    def caption_image(self, image_bytes: bytes) -> dict:
+        """Raw image -> backbone features -> queued caption."""
+        if self.backbone is None:
+            raise RuntimeError("service started without a backbone "
+                               "(--backbone_weights); /caption_image disabled")
+        bb_params, features_fn, image_size = self.backbone
+        img = torch.from_numpy(decode_image_bytes(image_bytes, image_size)).to(self.device)
+        fc, att = features_fn(bb_params, img)
+        att = att.reshape(att.shape[0], -1, att.shape[-1])
+        return self.caption_features([fc[0].cpu().numpy()], [att[0].cpu().numpy()])
 
     def warmup(self) -> None:
         """Run one full-size zero batch before serving traffic: builds the
@@ -198,14 +236,18 @@ def make_handler(service: CaptionService):
                 self._send(413, {"error": "body too large"})
                 return
             body = self.rfile.read(n)
-            if self.path != "/caption":
+            if self.path not in ("/caption", "/caption_image"):
                 self._send(404, {"error": "unknown path"})
                 return
             try:
-                fcs, atts = parse_features_payload(
-                    body, self.headers.get("Content-Type", ""))
-                out = service.caption_features(fcs, atts)
-            except (json.JSONDecodeError, KeyError, TypeError, ValueError) as e:
+                if self.path == "/caption":
+                    fcs, atts = parse_features_payload(
+                        body, self.headers.get("Content-Type", ""))
+                    out = service.caption_features(fcs, atts)
+                else:
+                    out = service.caption_image(body)
+            except (json.JSONDecodeError, KeyError, TypeError, ValueError,
+                    OSError) as e:  # malformed request or image: a client error
                 self._send(400, {"error": f"{type(e).__name__}: {e}"})
                 return
             except RuntimeError as e:

@@ -10,7 +10,10 @@ on the CUDA device unless ``--device cpu``:
   python -m recurrent_fusion_network_torch.eval --model_path checkpoint \\
       --load_model_id rfnet --eval_split test --beam_size 3
 
-Raw-image captioning (``--image_folder``) is not ported and raises.
+With ``--image_folder DIR`` it captions the folder's raw images instead
+(``training/eval_folder.py``: a resnet101 backbone at 448 px, a 14 x 14
+grid, weights from ``--backbone_weights``, random without) and prints one
+``file<TAB>caption`` line per image.
 """
 
 from __future__ import annotations
@@ -24,12 +27,13 @@ from .device import resolve_device
 from .models import setup
 from .ops.initializers import tree_map
 from .training.checkpoint import load_checkpoint
+from .training.eval_folder import eval_image_folder
 from .training.eval_split import eval_split
 
 
 def main(argv=None):
     """Parse ``argv`` (default: the command line), evaluate, print; returns
-    (loss, predictions, lang_stats)."""
+    (loss, predictions, lang_stats), or with --image_folder the captions."""
     opt = parse_opt(argv)
     device = resolve_device(opt.device)  # no CUDA and no --device cpu: raise first
     ckpt_dir = opt.model_path or opt.checkpoint_path
@@ -43,6 +47,8 @@ def main(argv=None):
                                        prefix="rl_" if opt.rl_prefix else "")
     if "opt" in infos:
         merge_checkpoint_opt(opt, infos["opt"])
+    if opt.image_folder:
+        return eval_folder(opt, params_np, infos, device)
     loader = build_loader(opt, synthetic=bool(opt.synthetic_features))
     try:
         opt.vocab_size = loader.vocab_size
@@ -59,6 +65,28 @@ def main(argv=None):
     for k, v in (stats or {}).items():
         print(f"{k}: {v:.4f}")
     return loss, preds, stats
+
+
+def eval_folder(opt, params_np, infos, device):
+    """The --image_folder branch: caption raw images, print and return
+    [{'image_id', 'file', 'caption'}]. As in the JAX package, the backbone
+    is ``eval_image_folder``'s default (resnet101, 448 px, 14 x 14) whatever
+    ``--backbone_arch`` says."""
+    vocab = infos.get("vocab")
+    if not vocab:
+        raise ValueError("checkpoint infos hold no vocab (needed for --image_folder)")
+    opt.vocab_size = len(vocab)
+    opt.seq_length = infos.get("opt", {}).get("seq_length") or 16
+    model = setup(opt)
+    params = params_from_jax(params_np)
+    check_params(model, params)
+    params = tree_map(lambda t: t.to(device), params)
+    preds = eval_image_folder(model, params, vocab, opt.image_folder,
+                              beam_size=opt.beam_size, batch_size=opt.batch_size,
+                              backbone_weights=opt.backbone_weights or None, device=device)
+    for p in preds:
+        print(f"{p['file']}\t{p['caption']}")
+    return preds
 
 
 if __name__ == "__main__":

@@ -9,6 +9,13 @@ static-shape device batches (``decoding/http_serve.py``).
   curl localhost:8080/healthz
   curl -X POST localhost:8080/caption -d '{"fc": [[...]], "att": [[[...]]]}'
 
+With ``--backbone_weights F`` (a torchvision state dict, or a flat npz for
+the inception nets; ``--backbone_arch``, default resnet101) it also answers
+``POST /caption_image`` with an image file as the body
+(``curl --data-binary @img.jpg localhost:8080/caption_image``). As in the
+JAX package, the backbone runs at 448 px with a 14 x 14 grid whatever the
+arch.
+
 It runs on CUDA unless ``--device cpu`` is given, and raises when CUDA is
 absent otherwise. SIGTERM / SIGINT drain in-flight requests and exit 0.
 """
@@ -22,6 +29,7 @@ import torch
 
 from .config import merge_checkpoint_opt, parse_serve_opt
 from .convert import check_params, params_from_jax
+from .data.feature_extraction.backbones import build_backbone
 from .decoding.http_serve import CaptionService, run_server
 from .device import resolve_device
 from .models import setup
@@ -47,9 +55,14 @@ def build_service(opt) -> CaptionService:
     check_params(model, params)
     if opt.serve_dtype == "bfloat16":
         params = cast_tree(params, torch.bfloat16)
+    backbone = None
+    if opt.backbone_weights:
+        bb_params, feats_fn, _, _ = build_backbone(opt.backbone_arch, 14, opt.backbone_weights,
+                                                   device=device)
+        backbone = (bb_params, feats_fn, 448)
     return CaptionService(model, params, vocab, device=device,
                           batch_size=opt.serve_batch_size,
-                          beam_size=opt.beam_size, depth=opt.serve_depth)
+                          beam_size=opt.beam_size, depth=opt.serve_depth, backbone=backbone)
 
 
 def main(argv=None):

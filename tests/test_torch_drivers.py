@@ -392,7 +392,7 @@ def test_the_three_clis_run_in_process(tmp_path, capsys):
     ("checkpoint_backend", "orbax", "M11"), ("profile_steps", "3", "M11"),
     ("eval_ensemble_multi_gpu", "1", "M10"), ("num_dp_devices", "2", "M10"),
     ("num_mp_devices", "2", "M10"),
-    ("async_opt", "1", "M10"), ("image_folder", "imgs", "M12")])
+    ("async_opt", "1", "M10")])
 def test_unported_flags_raise(flag, value, entry):
     with pytest.raises(NotImplementedError, match=entry):
         t_config.parse_opt(["--device", "cpu", "--feature_type", "synthetic",
