@@ -176,8 +176,32 @@ Phases, in order; any failure exits non-zero and prints no result line:
               32 concurrent POST /caption_image of the 448 x 448 JPEGs,
               captions equal to (c)'s for the same files, latency p50 / p95,
               launches 24 per decoded batch. Counters reset just before and
-              read just after each run; every launch's shape is one checked.
+              read just after each run; every launch's shape is one checked;
+ 13. serving front ends, the greedy-baseline reward, the runbook: (a)
+              phase 4's flagship in bf16 (serve batch 16, beam 3) behind the
+              asyncio front end, then the threading one: 64 keep-alive
+              clients send the same 512 npz requests to each; captions (one
+              word per token) equal across the two and to the in-process
+              decode of the same rows in batches of 16; 64 launches per
+              decoded batch; req/s, latency p50 / p95, batches, padded rows;
+              then the serve CLI over a flagship checkpoint with its default
+              front end (asyncio) answers one request and exits 0 on SIGTERM
+              within --drain_timeout; (b) get_self_critical_reward at phase
+              7's shape (f32, B = 256): rewards equal compute_reward over
+              model_sample's greedy tokens, 65 launches, rollout and reward
+              ms; (c) DRY_RUN=1 bash recurrent_fusion_network_torch/scripts/
+              run_coco.sh (NUM_SEEDS 2, DATA_DIR under build/, 40 GB free
+              asked for) and again with STAGES=eval, every stage a port CLI
+              on the card under this script's --launch-probe (each
+              command's launches counted by shape in its own process):
+              ranks 0 and 1 hold their XE and rl_ triples, both eval logs
+              finite metrics, seconds per stage; the run's files deleted.
+              Every shape of (a)-(c) is checked against the plain versions.
 The line before the last is the kernels JSON, the last line the device JSON.
+
+``python3 chip_smoke.py --launch-probe LOG -m MODULE ARGS`` runs one
+module as ``python -m`` does and appends its launches by shape to LOG (the
+runbook's interpreter in phase 13).
 """
 
 from __future__ import annotations
@@ -1489,9 +1513,9 @@ class ShapeRecorder:
         self.aa = aa
         self.fwd, self.bwd = {}, {}  # shape -> {run: launches}
 
-    def _count(self, table, shape, run):
+    def _count(self, table, shape, run, n=1):
         runs = table.setdefault(shape, {})
-        runs[run] = runs.get(run, 0) + 1
+        runs[run] = runs.get(run, 0) + n
 
     @staticmethod
     def _shape(q, keys, v, values, mask, dw=None):
@@ -1568,12 +1592,14 @@ def read_counters(counters, what):
     return launches
 
 
+METRICS = ("Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "METEOR", "ROUGE_L", "CIDEr", "SPICE")
+
+
 def check_stats(stats, what):
-    names = ("Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "METEOR", "ROUGE_L", "CIDEr", "SPICE")
-    bad = [k for k in names if not (stats and k in stats and math.isfinite(stats[k]))]
+    bad = [k for k in METRICS if not (stats and k in stats and math.isfinite(stats[k]))]
     if bad:
         raise AssertionError(f"{what}: metrics {bad} missing or not finite in {stats}")
-    return {k: stats[k] for k in names}
+    return {k: stats[k] for k in METRICS}
 
 
 def triple_files(run_id, prefix="", best=True):
@@ -3182,6 +3208,508 @@ def raw_images(torch, aa, card, counters):
     return out, rows
 
 
+# ---- phase 13: the asyncio front end, the greedy-baseline reward, the runbook
+
+AIO_CLIENTS, AIO_REQUESTS = 64, 512  # keep-alive clients, requests over them
+AIO_DRAIN_S = 30  # the serve CLI's --drain_timeout in the SIGTERM check
+SC_REPS = 5  # timed repeats of the greedy-baseline reward and its two parts
+RUNBOOK_FREE_GB = 40  # two seeds' XE and rl_ flagship triples (5.4 GB each) and links
+RUNBOOK_SEEDS = 2
+RUNBOOK_TIMEOUT_S = 900
+RUNBOOK_STAGES = {"data.prepro_labels": "prepro", "data.prepro_ngrams": "prepro",
+                  "data.feature_extraction.extract": "features", "main": "xe",
+                  "main_rl": "rl", "eval": "eval", "eval_ensemble": "eval"}
+
+
+class ChildLines:
+    """A child's stdout read on a thread, so that every wait for it has a
+    deadline."""
+
+    def __init__(self, proc):
+        import queue
+
+        self.seen, self._q = [], queue.Queue()
+        self._t = threading.Thread(target=self._read, args=(proc.stdout,), daemon=True)
+        self._t.start()
+
+    def _read(self, stream):
+        for line in stream:
+            self._q.put(line)
+        self._q.put(None)
+
+    def wait_for(self, text, timeout):
+        import queue
+
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                line = self._q.get(timeout=max(0.0, deadline - time.monotonic()))
+            except queue.Empty:
+                line = None
+            if line is None:
+                raise AssertionError(f"no line with {text!r} within {timeout} s:\n"
+                                     + "".join(self.seen)[-3000:])
+            self.seen.append(line)
+            if text in line:
+                return line
+
+    def text(self, timeout=30):
+        self._t.join(timeout)
+        while not self._q.empty():
+            line = self._q.get()
+            if line is not None:
+                self.seen.append(line)
+        return "".join(self.seen)
+
+
+def npz_body(fcs, atts):
+    import numpy as np
+
+    buf = io.BytesIO()
+    np.savez(buf, **{f"fc_{i}": x for i, x in enumerate(fcs)},
+             **{f"att_{i}": x for i, x in enumerate(atts)})
+    return buf.getvalue()
+
+
+def drive_http(port, bodies, clients):
+    """``clients`` threads, each on its own keep-alive connection, post
+    bodies i, i + clients, ... in turn. -> (replies, latencies in ms, wall s)."""
+    import http.client
+
+    n = len(bodies)
+    replies, latency = [None] * n, [None] * n
+
+    def client(c):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        try:
+            for i in range(c, n, clients):
+                t0 = time.perf_counter()
+                conn.request("POST", "/caption", body=bodies[i],
+                             headers={"Content-Type": "application/x-npz"})
+                r = conn.getresponse()
+                replies[i] = (r.status, json.loads(r.read()))
+                latency[i] = (time.perf_counter() - t0) * 1e3
+        except Exception as e:  # recorded, then judged by the caller
+            replies[i] = (None, repr(e))
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    return replies, latency, time.perf_counter() - t0
+
+
+def aio_serving(torch, model, params, card, counters, recorder):
+    """Phase 13 (a): the flagship in bf16 behind the asyncio and then the
+    threading front end (batch 16, beam 3): AIO_CLIENTS keep-alive clients
+    send AIO_REQUESTS npz requests, the same to both; captions (one word per
+    token) equal across the front ends and to the in-process decode of the
+    same rows in batches of 16; 64 launches per decoded batch. Then the
+    serve CLI with its default front end answers one request and drains on
+    SIGTERM."""
+    import numpy as np
+
+    from recurrent_fusion_network_torch.decoding.aio_serve import run_server_async
+    from recurrent_fusion_network_torch.decoding.http_serve import (
+        CaptionService,
+        feature_shapes,
+        parse_features_payload,
+        run_server,
+    )
+    from recurrent_fusion_network_torch.training.checkpoint import cast_tree
+
+    vocab = {str(i + 1): f"w{i + 1}" for i in range(model.vocab_size)}
+    svc = CaptionService(model, cast_tree(params, torch.bfloat16), vocab, device=DEVICE,
+                         batch_size=SERVE_BATCH, beam_size=BEAM)
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    fc_dims, att_shapes = feature_shapes(model)
+    feats = ([torch.randn(AIO_REQUESTS, d, generator=gen, device=DEVICE).cpu().numpy()
+              for d in fc_dims],
+             [torch.randn(AIO_REQUESTS, a, d, generator=gen, device=DEVICE).cpu().numpy()
+              for a, d in att_shapes])
+    bodies = [npz_body([f[i] for f in feats[0]], [a[i] for a in feats[1]])
+              for i in range(AIO_REQUESTS)]
+    # the host's part of a request: parsing its body (the 3.15 MB npz)
+    parse_ms = []
+    for body in bodies[:32]:
+        t0 = time.perf_counter()
+        parse_features_payload(body, "application/x-npz")
+        parse_ms.append((time.perf_counter() - t0) * 1e3)
+    out = {"body_mb": len(bodies[0]) / 1e6, "parse_ms": statistics.median(parse_ms)}
+    try:
+        svc.warmup()
+        # the in-process decode of the same rows, cast as submit() casts them,
+        # one batch at a time (each read back before the next)
+        want = []
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            for b in range(0, AIO_REQUESTS, SERVE_BATCH):
+                rows = slice(b, b + SERVE_BATCH)
+                dec = svc._decode(
+                    [torch.from_numpy(f[rows]).to(DEVICE, torch.bfloat16) for f in feats[0]],
+                    [torch.from_numpy(a[rows]).to(DEVICE, torch.bfloat16) for a in feats[1]])
+                seq, lps = dec["seq"].cpu().numpy(), dec["seq_logprobs"].cpu().numpy()
+                want += [svc.postprocess_row({"seq": seq[i], "seq_logprobs": lps[i]})
+                         for i in range(seq.shape[0])]
+        out["decode_ms"] = (time.perf_counter() - t0) * 1e3 / (AIO_REQUESTS // SERVE_BATCH)
+        log(f"aio serving: a request body {out['body_mb']:.2f} MB, parsed in "
+            f"{out['parse_ms']:.2f} ms (median of 32); the in-process decode "
+            f"{out['decode_ms']:.2f} ms per batch of {SERVE_BATCH} (serial, with readback) "
+            f"on {card}")
+        for frontend in ("asyncio", "threads"):
+            if frontend == "asyncio":
+                fe = run_server_async(svc, "127.0.0.1", 0)
+                port, stop = fe.port, fe.stop
+            else:
+                httpd = run_server(svc, "127.0.0.1", 0)
+                port = httpd.server_address[1]
+
+                def stop():
+                    httpd.shutdown()
+                    httpd.server_close()
+            before = dict(svc.server.stats)
+            run = "aio_serve" if frontend == "asyncio" else "threads_serve"
+            try:
+                reset_counters(counters)
+                with recorder.run(run):
+                    replies, latency, wall = drive_http(port, bodies, AIO_CLIENTS)
+                launches = read_counters(counters, f"{frontend} serving")
+            finally:
+                stop()
+            stats = {k: svc.server.stats[k] - before[k] for k in before}
+            bad = [r for r in replies if r is None or r[0] != 200]
+            if bad:
+                raise AssertionError(f"{frontend}: {len(bad)} bad replies, e.g. {bad[0]}")
+            got = [r[1] for r in replies]
+            differ = [i for i, (g, w) in enumerate(zip(got, want))
+                      if g["caption"] != w["caption"]]
+            if differ:
+                raise AssertionError(f"{frontend}: {len(differ)} of {AIO_REQUESTS} captions "
+                                     f"differ from the in-process decode, e.g. row {differ[0]}: "
+                                     f"{got[differ[0]]} vs {want[differ[0]]}")
+            lp_diff = max(abs(g["logprob"] - w["logprob"]) for g, w in zip(got, want))
+            if stats["requests"] != AIO_REQUESTS or launches != (64 * stats["batches"], 0) \
+                    or recorder.totals(run) != launches:
+                raise AssertionError(f"{frontend}: launches {launches} (by shape "
+                                     f"{recorder.totals(run)}) over {stats}, expected 64 a "
+                                     f"batch")
+            lat = sorted(latency)
+            out[frontend] = dict(
+                requests=AIO_REQUESTS, clients=AIO_CLIENTS, wall_s=wall,
+                req_per_s=AIO_REQUESTS / wall, p50_ms=statistics.median(lat),
+                p95_ms=statistics.quantiles(lat, n=20)[18], launches=launches,
+                batches=stats["batches"], padded_rows=stats["padded_rows"],
+                max_logprob_diff=lp_diff, stats=stats)
+            log(f"aio serving {frontend}: {AIO_REQUESTS} npz requests from {AIO_CLIENTS} "
+                f"keep-alive clients in {wall:.3f} s: {out[frontend]['req_per_s']:.1f} req/s, "
+                f"p50 {out[frontend]['p50_ms']:.1f} ms, p95 {out[frontend]['p95_ms']:.1f} ms; "
+                f"{stats['batches']} batches, {stats['padded_rows']} padded rows; captions "
+                f"equal to the in-process decode (log-prob max diff {lp_diff:.3e}); launches "
+                f"{launches} (64 a batch) on {card}")
+    finally:
+        svc.close()
+    out["cli"] = serve_cli_drain(torch, model, params, bodies[0], want[0], card)
+    return out
+
+
+def serve_cli_drain(torch, model, params, body, want, card):
+    """The serve CLI (default front end, bf16) over a flagship checkpoint:
+    one request answered as the in-process decode answers it, then SIGTERM:
+    exit 0 within --drain_timeout."""
+    import http.client
+    import tempfile
+
+    from recurrent_fusion_network_torch.config import parse_opt
+    from recurrent_fusion_network_torch.convert import params_to_jax
+    from recurrent_fusion_network_torch.models import setup
+    from recurrent_fusion_network_torch.training.checkpoint import save_checkpoint
+    from recurrent_fusion_network_torch.training.train_loop import snapshot_opt
+
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="aio_cli_", dir=build)
+    proc = None
+    try:
+        opt = parse_opt(["--caption_model", "recurrent_fusion_model", "--feature_type",
+                         "feat_array", "--top_words_count", str(model.top_words_count)])
+        opt.vocab_size, opt.seq_length = model.vocab_size, model.seq_length
+        built = setup(opt)
+        if (built.fc_feat_sizes, built.att_feat_sizes, built.att_nums) != (
+                model.fc_feat_sizes, model.att_feat_sizes, model.att_nums):
+            raise AssertionError("serve CLI: the registry's widths are not the flagship's")
+        vocab = {str(i + 1): f"w{i + 1}" for i in range(model.vocab_size)}
+        save_checkpoint(root, "aio", 0, params=params_to_jax(params),
+                        infos={"opt": snapshot_opt(opt), "vocab": vocab}, best=True)
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "recurrent_fusion_network_torch.serve", "--model_path",
+             root, "--load_model_id", "aio", "--host", "127.0.0.1", "--port", "0",
+             "--beam_size", str(BEAM), "--serve_batch_size", str(SERVE_BATCH),
+             "--drain_timeout", str(AIO_DRAIN_S)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=REPO,
+            env=dict(os.environ, PYTHONUNBUFFERED="1"))
+        child = ChildLines(proc)
+        ready = child.wait_for("caption service on", timeout=600)
+        if "asyncio" not in ready:
+            raise AssertionError(f"serve CLI: the default front end is not asyncio: {ready}")
+        ready_s = time.perf_counter() - t0
+        port = int(ready.split("caption service on ", 1)[1].split()[0].rsplit(":", 1)[1])
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        conn.request("GET", "/healthz")
+        r = conn.getresponse()
+        health = json.loads(r.read())
+        conn.request("POST", "/caption", body=body, headers={"Content-Type": "application/x-npz"})
+        r = conn.getresponse()
+        reply = (r.status, json.loads(r.read()))
+        conn.close()
+        if health.get("frontend") != "asyncio" or reply[0] != 200 \
+                or reply[1]["caption"] != want["caption"]:
+            raise AssertionError(f"serve CLI: healthz {health}, reply {reply}, want {want}")
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=AIO_DRAIN_S + 30)
+        drain_s = time.perf_counter() - t1
+        text = child.text()
+        if rc != 0 or "shutdown complete" not in text or drain_s > AIO_DRAIN_S:
+            raise AssertionError(f"serve CLI: exit {rc} after SIGTERM in {drain_s:.2f} s:\n"
+                                 f"{text[-3000:]}")
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"aio serving CLI: default front end asyncio, ready in {ready_s:.2f} s, one request "
+        f"answered as in process, SIGTERM -> exit 0 in {drain_s:.3f} s (--drain_timeout "
+        f"{AIO_DRAIN_S}) on {card}")
+    return dict(ready_s=ready_s, drain_s=drain_s, exit=rc)
+
+
+def greedy_launches(model):
+    """Forward launches of one greedy rollout of the flagship: every
+    stage-I encoder per stage-I review step, stage II per step, and the
+    decoder per step (seq_length + 1)."""
+    return (model.num_review_steps_0 * len(model.att_nums) + model.num_review_steps
+            + model.seq_length + 1)
+
+
+def sc_reward_phase(torch, model, params, scorer, card, counters, recorder):
+    """Phase 13 (b): get_self_critical_reward at phase 7's SCST shape (f32,
+    B = RL_ROWS, 5 references an image): the rewards equal compute_reward over
+    model_sample's greedy tokens; launches one greedy rollout's; the rollout's
+    and the reward's ms."""
+    import numpy as np
+
+    from recurrent_fusion_network_torch.decoding.api import model_sample
+    from recurrent_fusion_network_torch.rewards.self_critical import (
+        compute_reward,
+        get_self_critical_reward,
+    )
+
+    gen = torch.Generator(device=DEVICE).manual_seed(14)
+    fcs, atts = features(torch, model, RL_ROWS, gen, torch.float32)
+    rng = np.random.default_rng(14)
+    L, V = model.seq_length, model.vocab_size
+    sampled = rng.integers(1, V + 1, (RL_ROWS, L))
+    for r, n in enumerate(rng.integers(3, L + 1, RL_ROWS)):
+        sampled[r, n:] = 0
+    gts = [rng.integers(1, V + 1, (5, L)) for _ in range(RL_ROWS)]
+    get_self_critical_reward(model, params, fcs, atts, gts, sampled, scorer)  # warm
+    torch.cuda.synchronize()
+    reset_counters(counters)
+    t0 = time.perf_counter()
+    with recorder.run("sc_reward"):
+        rewards = get_self_critical_reward(model, params, fcs, atts, gts, sampled, scorer)
+    times = {"total": [(time.perf_counter() - t0) * 1e3], "rollout": [], "reward": []}
+    launches = read_counters(counters, "sc_reward")
+    expect = (greedy_launches(model), 0)
+    if launches != expect or recorder.totals("sc_reward") != expect:
+        raise AssertionError(f"sc_reward: launches {launches}, expected {expect}")
+    for _ in range(SC_REPS):
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            greedy = model_sample(model, params, fcs, atts, beam_size=1,
+                                  sample_max=True).seq.cpu()
+        t1 = time.perf_counter()
+        want = compute_reward(scorer, sampled, greedy.numpy(), gts)
+        t2 = time.perf_counter()
+        get_self_critical_reward(model, params, fcs, atts, gts, sampled, scorer)
+        times["rollout"].append((t1 - t0) * 1e3)
+        times["reward"].append((t2 - t1) * 1e3)
+        times["total"].append((time.perf_counter() - t2) * 1e3)
+    total_ms, rollout_ms, reward_ms = (statistics.median(times[k])
+                                       for k in ("total", "rollout", "reward"))
+    if not np.array_equal(rewards, want) or not np.isfinite(rewards).all():
+        raise AssertionError("sc_reward: the rewards differ from compute_reward over "
+                             "model_sample's greedy tokens")
+    out = dict(rows=RL_ROWS, launches=launches, total_ms=total_ms, rollout_ms=rollout_ms,
+               reward_ms=reward_ms, mean_reward=float(rewards[:, 0].mean()),
+               greedy_rows_nonempty=int((greedy[:, 0] > 0).sum()))
+    log(f"sc_reward: get_self_critical_reward f32 B={RL_ROWS}: {total_ms:.2f} ms (greedy "
+        f"rollout {rollout_ms:.2f} ms, CIDEr-D reward {reward_ms:.2f} ms; medians of "
+        f"{SC_REPS + 1}, {SC_REPS}, {SC_REPS}; engine "
+        f"{scorer.engine}), rewards equal compute_reward over model_sample's greedy tokens, "
+        f"launches {launches} on {card}")
+    return out
+
+
+def launch_probe(log_path, argv):
+    """``chip_smoke.py --launch-probe LOG -m MODULE ARGS``: run MODULE as
+    ``python -m`` does, with both kernels' launches counted by shape, and
+    append them, the seconds and the exit to LOG as one JSON line. Any
+    other command line (the runbook's heredoc) runs the interpreter itself."""
+    if argv[:1] != ["-m"]:
+        os.execv(sys.executable, [sys.executable] + argv)
+    import runpy
+
+    sys.path.insert(0, REPO)
+    from recurrent_fusion_network_torch.kernels import additive_attention as aa
+
+    module, recorder, ok = argv[1], ShapeRecorder(aa), False
+    t0 = time.perf_counter()
+    try:
+        sys.argv = [module] + argv[2:]
+        with recorder.run("run"):
+            runpy.run_module(module, run_name="__main__", alter_sys=True)
+        ok = True
+    finally:
+        with open(log_path, "a") as f:
+            f.write(json.dumps({
+                "module": module, "argv": argv[2:], "ok": ok,
+                "seconds": time.perf_counter() - t0,
+                "launches": [aa.launches, aa.bwd_launches], "scalar": aa.scalar_launches,
+                "fwd": [[list(k), v["run"]] for k, v in recorder.fwd.items()],
+                "bwd": [[list(k), v["run"]] for k, v in recorder.bwd.items()]}) + "\n")
+
+
+def eval_metrics(path, what):
+    import re
+
+    with open(path) as f:
+        text = f.read()
+    stats = {k: float(v) for k, v in re.findall(r"^(\w+): (\S+)$", text, re.M)
+             if k in METRICS}
+    return check_stats(stats, what)
+
+
+def runbook_phase(torch, card, recorder):
+    """Phase 13 (c): DRY_RUN=1 bash recurrent_fusion_network_torch/scripts/
+    run_coco.sh (NUM_SEEDS 2, DATA_DIR under build/, a unique ID), every
+    stage through the port's CLIs on the card, each run under the launch
+    probe; then STAGES=eval again. Ranks 0 and 1 hold their XE and rl_
+    triples, both eval logs finite metrics; every launch's shape goes to
+    ``recorder`` under runbook_<stage>. The run's checkpoint/ and log/
+    files are deleted."""
+    import glob
+    import tempfile
+
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    free_gb = shutil.disk_usage(build).free / 1e9
+    if free_gb < RUNBOOK_FREE_GB:
+        raise AssertionError(f"runbook: {free_gb:.1f} GB free under {build}, "
+                             f"{RUNBOOK_FREE_GB} GB needed")
+    root = tempfile.mkdtemp(prefix="runbook_", dir=build)
+    run_id = f"chipsmoke{os.getpid()}"
+    probe_log = os.path.join(root, "launches.jsonl")
+    python = os.path.join(root, "python")
+    with open(python, "w") as f:
+        f.write(f'#!/bin/sh\nexec "{sys.executable}" "{os.path.abspath(__file__)}" '
+                f'--launch-probe "{probe_log}" "$@"\n')
+    os.chmod(python, 0o755)
+    env = dict(os.environ, DRY_RUN="1", DATA_DIR=os.path.join(root, "data"), ID=run_id,
+               NUM_SEEDS=str(RUNBOOK_SEEDS), PYTHON=python, PYTHONUNBUFFERED="1")
+    script = os.path.join(REPO, "recurrent_fusion_network_torch", "scripts", "run_coco.sh")
+    ck, logs = os.path.join(REPO, "checkpoint"), os.path.join(REPO, "log")
+    out = {}
+    try:
+        for run, stages in (("all", None), ("eval_again", "eval")):
+            with open(probe_log, "w"):
+                pass
+            t0 = time.perf_counter()
+            r = subprocess.run(["bash", script], env=dict(env, **({"STAGES": stages}
+                                                                  if stages else {})),
+                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                               timeout=RUNBOOK_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            with open(probe_log) as f:
+                calls = [json.loads(line) for line in f]
+            if r.returncode != 0 or "all requested stages" not in r.stdout \
+                    or not all(c["ok"] for c in calls):
+                raise AssertionError(f"runbook {run}: exit {r.returncode}:\n{r.stdout[-4000:]}")
+            seconds, launches = {}, {}
+            for c in calls:
+                stage = RUNBOOK_STAGES[c["module"].split(".", 1)[1]]
+                seconds[stage] = seconds.get(stage, 0.0) + c["seconds"]
+                name = f"runbook_{stage}" if run == "all" else f"runbook_{stage}_again"
+                if c["scalar"]:
+                    raise AssertionError(f"runbook: {c['module']} took the scalar path")
+                by_shape = [sum(n for _, n in c["fwd"]), sum(n for _, n in c["bwd"])]
+                if by_shape != c["launches"]:
+                    raise AssertionError(f"runbook: {c['module']} launches {c['launches']} "
+                                         f"but {by_shape} by shape")
+                for table, rows in ((recorder.fwd, c["fwd"]), (recorder.bwd, c["bwd"])):
+                    for shape, n in rows:
+                        recorder._count(table, tuple(shape), name, n)
+                launches[name] = [a + b for a, b in zip(launches.get(name, [0, 0]),
+                                                        c["launches"])]
+            expect = {"all": ["prepro", "prepro"] + ["features"] * 5 + ["xe", "rl", "eval",
+                                                                          "eval"],
+                      "eval_again": ["eval", "eval"]}[run]
+            if [RUNBOOK_STAGES[c["module"].split(".", 1)[1]] for c in calls] != expect:
+                raise AssertionError(f"runbook {run}: commands {[c['module'] for c in calls]}")
+            metrics = {k: eval_metrics(os.path.join(logs, f"eval_{k}_{run_id}"),
+                                       f"runbook {run} eval {k}")
+                       for k in ("single", "ensemble")}
+            if run == "all":
+                missing = [f for rank in range(RUNBOOK_SEEDS) for prefix in ("", "rl_")
+                           for kind in ("model", "optimizer", "infos")
+                           for f in (f"{prefix}{kind}_{run_id}_{rank}-best.pkl",)
+                           if not os.path.exists(os.path.join(ck, f))]
+                if missing:
+                    raise AssertionError(f"runbook: triples missing: {missing}")
+            out[run] = dict(wall_s=wall, seconds=seconds, launches=launches, metrics=metrics)
+            log(f"runbook {run}: exit 0 in {wall:.2f} s; seconds by stage "
+                + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items())
+                + f"; launches (fwd, bwd) {launches}; eval metrics single "
+                f"{metrics['single']}, ensemble {metrics['ensemble']} on {card}")
+        out["free_gb"] = free_gb
+    finally:
+        for path in glob.glob(os.path.join(ck, f"*{run_id}*")) + glob.glob(
+                os.path.join(logs, f"*{run_id}*")):
+            os.remove(path)
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def phase13(torch, aa, model, card, scorer):
+    """Phase 13: (a) the asyncio front end, (b) the greedy-baseline reward,
+    (c) the runbook's dry run. -> (results, forward rows, backward rows),
+    the rows of every shape the three met, checked against the plain
+    versions."""
+    t0 = time.perf_counter()
+    recorder = ShapeRecorder(aa)
+    params = model.init_params(torch.Generator(device=DEVICE).manual_seed(0), device=DEVICE)
+    out = {"serve": aio_serving(torch, model, params, card, [aa], recorder)}
+    out["sc_reward"] = sc_reward_phase(torch, model, params, scorer, card, [aa], recorder)
+    del params
+    torch.cuda.empty_cache()
+    out["runbook"] = runbook_phase(torch, card, recorder)
+    runs = {"aio_serve": ("aio_serve",), "threads_serve": ("threads_serve",),
+            "sc_reward": ("sc_reward",)}
+    for run in ("all", "eval_again"):
+        for name in out["runbook"][run]["launches"]:
+            runs[name] = (name,)
+    fwd_rows, bwd_rows = check_driver_sites(torch, aa, recorder, runs)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 13 in {out['seconds']:.2f} s: {len(recorder.fwd)} forward and "
+        f"{len(recorder.bwd)} backward shapes checked against the plain versions")
+    return out, fwd_rows, bwd_rows
+
+
 def path_sums(site_rows, path):
     """ms, plain_ms and bound_ms summed over the launches of one path (one
     beam-3 batch, one train step or one SCST iteration), and bound / ms of
@@ -3331,6 +3859,25 @@ def main():
                      dtype="float32")
     torch.cuda.empty_cache()
 
+    # ---- 13. the asyncio front end, the greedy-baseline reward, the runbook's
+    # dry run
+    p13, p13_rows, p13_bwd_rows = phase13(torch, aa, model, card, scorer)
+    p13_launches = {"aio_serve": p13["serve"]["asyncio"]["launches"],
+                    "threads_serve": p13["serve"]["threads"]["launches"],
+                    "sc_reward": p13["sc_reward"]["launches"],
+                    **{name: tuple(n) for run in ("all", "eval_again")
+                       for name, n in p13["runbook"][run]["launches"].items()}}
+    p13_fwd = sum(f for f, _ in p13_launches.values())
+    p13_bwd = sum(b for _, b in p13_launches.values())
+    p13_fwd_sums = {run: dict(path_sums(p13_rows, run), dtype="bfloat16" if run.endswith(
+        "_serve") else "float32") for run, (f, _) in p13_launches.items() if f}
+    p13_bwd_sums = {run: dict(path_sums(p13_bwd_rows, run), dtype="float32")
+                    for run, (_, b) in p13_launches.items() if b}
+    if any(p13_fwd_sums[r]["launches"] != f for r, (f, _) in p13_launches.items() if f) or any(
+            p13_bwd_sums[r]["launches"] != b for r, (_, b) in p13_launches.items() if b):
+        raise AssertionError("phase 13: the checked sites do not add up to its launches")
+    torch.cuda.empty_cache()
+
     # both kernels against their plain versions at every shape of phases 8,
     # 10 and 11's CLI runs
     t0 = time.perf_counter()
@@ -3394,8 +3941,8 @@ def main():
         if (remat_fwd[p]["launches"] * steps, remat_bwd[p]["launches"] * steps) \
                 != p11_launches[p]:
             raise AssertionError(f"{p}: the train sites do not add up to phase 11's launches")
-    rows = rows + scst_rows + drv_rows + rn_rows + raw_rows
-    bwd_rows = bwd_rows + scst_bwd_rows + drv_bwd_rows + rn_bwd_rows
+    rows = rows + scst_rows + drv_rows + rn_rows + raw_rows + p13_rows
+    bwd_rows = bwd_rows + scst_bwd_rows + drv_bwd_rows + rn_bwd_rows + p13_bwd_rows
     kernels = [{
         "name": "additive_attention_fwd",
         "route": "cuda",
@@ -3404,7 +3951,7 @@ def main():
         "launches": launches["additive_attention"]
         + trained["launches"]["additive_attention_fwd"]
         + scst_launches["additive_attention_fwd"] + driver_fwd + sum(model_fwd.values())
-        + fleet_fwd + p11_fwd + p12_fwd,
+        + fleet_fwd + p11_fwd + p12_fwd + p13_fwd,
         # "eval": the eval CLI's run (one batch of 100 test images);
         # "drivers": all of phase 8's CLI runs, their eval batches included;
         # "<model>_<path>": phase 9's HTTP serving, XE and SCST runs;
@@ -3418,7 +3965,8 @@ def main():
                              "drivers": driver_fwd, **model_fwd,
                              **{run: f for run, (f, _) in fleet_launches.items()},
                              **{run: f for run, (f, _) in p11_launches.items()},
-                             **p12_launches},
+                             **p12_launches,
+                             **{run: f for run, (f, _) in p13_launches.items()}},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         # per beam-3 bf16 batch at B = 512: the sum over its 64 launches
         "ms": serve["ms"],
@@ -3436,10 +3984,12 @@ def main():
         # "full", 65 under "save_ctx"), and over the data front's XE and
         # SCST runs on the sharded stores; phase 12: per f32 beam-3 batch of
         # 16 images of ReviewNet on the resnet grid (24 launches), in eval
-        # --image_folder and /caption_image alike
+        # --image_folder and /caption_image alike; phase 13: over each whole
+        # run (the two front ends' 512 requests, one greedy-baseline reward,
+        # each stage of the runbook's dry run)
         "by_path": {"serve": serve, "train": train_fwd, "scst": scst_fwd, "eval": eval_fwd,
                     "drivers": drivers_fwd, **rn_fwd, **fleet_fwd_sums, **remat_fwd,
-                    **front_fwd, "raw_image_batch": raw_batch},
+                    **front_fwd, "raw_image_batch": raw_batch, **p13_fwd_sums},
         "ok": all(r["ok"] and r["bitwise_repeat"] for r in rows),
         "sites": rows,
     }, {
@@ -3450,13 +4000,14 @@ def main():
         "replaces": "recurrent_fusion_network_tpu/ops/attention.py:46",
         "launches": trained["launches"]["additive_attention_bwd"]
         + scst_launches["additive_attention_bwd"] + driver_bwd + sum(model_bwd.values())
-        + fleet_bwd + p11_bwd,
+        + fleet_bwd + p11_bwd + p13_bwd,
         "launches_by_path": {"train": trained["launches"]["additive_attention_bwd"],
                              "scst": scst_launches["additive_attention_bwd"],
                              "drivers": driver_bwd, **model_bwd,
                              "fleet_xe": fleet_launches["fleet_xe"][1],
                              "fleet_scst": fleet_launches["fleet_scst"][1],
-                             **{run: b for run, (_, b) in p11_launches.items()}},
+                             **{run: b for run, (_, b) in p11_launches.items()},
+                             **{run: b for run, (_, b) in p13_launches.items() if b}},
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
         # errors relative to the largest plain value of each output
         "max_rel_err": max(r["max_rel_err"] for r in bwd_rows),
@@ -3465,7 +4016,7 @@ def main():
         "plain_ms": train_bwd["plain_ms"],
         "bound_ms": train_bwd["bound_ms"],
         "by_path": {"train": train_bwd, "scst": scst_bwd, "drivers": drivers_bwd, **rn_bwd,
-                    **fleet_bwd_sums, **remat_bwd, **front_bwd},
+                    **fleet_bwd_sums, **remat_bwd, **front_bwd, **p13_bwd_sums},
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in bwd16) else "operations",
         "library_ms": None,  # no single PyTorch call computes its gradient
         "ok": all(r["ok"] and r["bitwise_repeat"] for r in bwd_rows),
@@ -3482,6 +4033,7 @@ def main():
     for r in p12["eval"].values():
         r.pop("captions")
     log("phase 12 summary: " + json.dumps(p12))
+    log("phase 13 summary: " + json.dumps(p13))
     for k in kernels:
         for path, sums in k["by_path"].items():
             log(f"kernel {k['name']} per {sums['dtype']} {path} path ({sums['launches']} "
@@ -3496,4 +4048,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--launch-probe"]:
+        launch_probe(sys.argv[2], sys.argv[3:])
+    else:
+        main()

@@ -192,8 +192,16 @@ def _driver_defaults() -> dict:
     )
 
 
-CHOICES = {"serve_dtype": ("bfloat16", "float32"), "dtype": ("float32", "bfloat16")}
-_RUNTIME = ("vocab_size", "seq_length", "current_lr", "ss_prob")
+def _serve_defaults() -> dict:
+    """The serve CLI's own flags beside ``parse_opt``'s (the JAX serve
+    CLI's pre-parser, ``serve.py:24-53``): --port is the HTTP front end's."""
+    return dict(port=8080, serve_frontend="asyncio", serve_dp_devices=1)
+
+
+CHOICES = {"serve_dtype": ("bfloat16", "float32"), "dtype": ("float32", "bfloat16"),
+           "serve_frontend": ("asyncio", "threads")}
+# run-time keys without a flag (ss_prob has one, as in the JAX package)
+_RUNTIME = ("vocab_size", "seq_length", "current_lr")
 
 # the port's own options, which the JAX package's do not have: a
 # checkpoint's saved opt leaves them out, as the JAX eval adopts every
@@ -251,12 +259,15 @@ def is_jax_key(key: str) -> bool:
 
 
 def parse_serve_opt(argv: Optional[Sequence[str]] = None) -> Options:
-    """The serve CLI's flags: the model, checkpoint and serving options and
-    the /caption_image backbone's; --port is the HTTP front end's."""
+    """The serve CLI's flags: every ``parse_opt`` flag and the front end's
+    (--serve_frontend asyncio | threads, --serve_dp_devices; --port is the
+    HTTP front end's), as the JAX serve CLI reads them."""
     parser = argparse.ArgumentParser(description="RFNet caption serving (PyTorch)")
-    _add_flags(parser, {**_defaults(), "port": 8080, "backbone_weights": "",
-                        "backbone_arch": "resnet101"})
-    return Options(**vars(parser.parse_args(argv)))
+    _add_flags(parser, {**_defaults(), **_train_defaults(), **_driver_defaults(),
+                        **_serve_defaults()})
+    opt = Options(**vars(parser.parse_args(argv)))
+    finalize_options(opt)
+    return opt
 
 
 def parse_opt(argv: Optional[Sequence[str]] = None) -> Options:
@@ -294,6 +305,7 @@ _UNPORTED = (
     ("num_dp_devices", lambda v: v > 1, "the data-parallel mesh", "M10"),
     ("num_mp_devices", lambda v: v > 1, "the dp x mp mesh", "M10"),
     ("async_opt", lambda v: bool(v), "the --async_opt data-parallel mapping", "M10"),
+    ("serve_dp_devices", lambda v: v > 1, "the serving dp mesh", "M10"),
 )
 
 

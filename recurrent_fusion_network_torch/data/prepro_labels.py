@@ -80,7 +80,7 @@ def preprocess(karpathy: dict, max_length: int = 16, word_count_threshold: int =
     return info, np.stack(labels), np.array(starts), np.array(ends), top_words
 
 
-def main(argv=None):
+def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--input_json", required=True)
     p.add_argument("--output_json", required=True)
@@ -89,7 +89,11 @@ def main(argv=None):
     p.add_argument("--max_length", type=int, default=16)
     p.add_argument("--word_count_threshold", type=int, default=5)
     p.add_argument("--top_words_count", type=int, default=1000)
-    args = p.parse_args(argv)
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
 
     with open(args.input_json) as f:
         karpathy = json.load(f)

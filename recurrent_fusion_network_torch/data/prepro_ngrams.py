@@ -91,7 +91,7 @@ def compute_doc_freq_karpathy(images, word_to_ix, split: str = "train",
     return dict(df), n_img
 
 
-def main(argv=None):
+def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--input_json", required=True)
     p.add_argument("--input_labels", required=True)
@@ -102,7 +102,11 @@ def main(argv=None):
                    help="the Karpathy dataset JSON: count df over the untruncated "
                         "sentence tokens, as the reference does (the label matrix "
                         "is truncated at max_length)")
-    args = p.parse_args(argv)
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
 
     ds = Dataset.from_files(args.input_json, args.input_labels)
     if args.karpathy_json:

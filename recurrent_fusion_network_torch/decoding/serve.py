@@ -15,7 +15,7 @@ import threading
 import time
 from collections import deque
 from concurrent.futures import Future, InvalidStateError
-from typing import Callable, Iterable, Iterator, Sequence
+from typing import Callable, Iterable, Iterator, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -59,6 +59,16 @@ def pipelined_map(fn: Callable, items: Iterable, *, depth: int = 2) -> Iterator:
             yield window.popleft()
     while window:
         yield window.popleft()
+
+
+def pipelined_decode(decode_fn: Callable, batches: Iterable[Tuple], *,
+                     depth: int = 2) -> Iterator:
+    """Decode a stream of feature batches with ``depth`` batches in flight.
+
+    decode_fn: (fc, att) -> decode output (device tensors, e.g. a
+    ``model_sample`` closure). Yields ((fc, att), output) pairs in order.
+    """
+    return pipelined_map(lambda b: decode_fn(*b), batches, depth=depth)
 
 
 class CaptionServer:

@@ -48,9 +48,8 @@ def member_pairs(model_ids: str, n_ranks: int):
     return pairs
 
 
-def main(argv=None):
-    """Parse ``argv`` (default: the command line), evaluate, print; returns
-    (predictions, lang_stats)."""
+def parse_args(argv=None):
+    """-> (the CLI's own flags, the options of ``parse_opt``)."""
     pre = argparse.ArgumentParser(add_help=False)
     pre.add_argument("--model_ids", type=str, required=True,
                      help="comma-separated checkpoint ids; 'id:rank' selects a rank "
@@ -59,7 +58,13 @@ def main(argv=None):
                      help="with one model id, load its ranks 0..n_ranks-1")
     pre.add_argument("--diff_feat", type=int, default=0)
     pre_args, rest = pre.parse_known_args(argv)
-    opt = parse_opt(rest)
+    return pre_args, parse_opt(rest)
+
+
+def main(argv=None):
+    """Parse ``argv`` (default: the command line), evaluate, print; returns
+    (predictions, lang_stats)."""
+    pre_args, opt = parse_args(argv)
     resolve_device(opt.device)  # no CUDA and no --device cpu: raise first
     ckpt_dir = opt.model_path or opt.checkpoint_path
     prefix = "rl_" if opt.rl_prefix else ""

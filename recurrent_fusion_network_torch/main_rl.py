@@ -43,13 +43,18 @@ def make_scorer(path: str, loader, log_fn=print) -> CiderD:
     return CiderD(compute_doc_freq(loader.dataset, ids), float(np.log(len(ids))))
 
 
-def main(argv=None):
-    """Parse ``argv`` (default: the command line), train; returns the
-    infos (a fleet's result dict under ``--n_seeds`` > 1)."""
+def parse_args(argv=None):
+    """-> (the CLI's own flags, the options of ``parse_opt``)."""
     pre = argparse.ArgumentParser(add_help=False)
     pre.add_argument("--cider_df", type=str, default="data/coco-train-idxs.p")
     pre_args, rest = pre.parse_known_args(argv)
-    opt = parse_opt(rest)
+    return pre_args, parse_opt(rest)
+
+
+def main(argv=None):
+    """Parse ``argv`` (default: the command line), train; returns the
+    infos (a fleet's result dict under ``--n_seeds`` > 1)."""
+    pre_args, opt = parse_args(argv)
     resolve_device(opt.device)  # no CUDA and no --device cpu: raise first
     loader = build_loader(opt, synthetic=bool(opt.synthetic_features))
     try:

@@ -11,6 +11,8 @@ Counterpart of ``recurrent_fusion_network_tpu/ops/losses.py``:
   reward_loss               the SCST policy-gradient loss (optionally PPO's
                             clipped surrogate) with the entropy term
   review_net_reward_loss    reward_loss + the averaged reason loss
+  tv_loss, smooth_l1,       the reference's eval-only TVCriterion and its
+  soft_att_plus_ltg_loss    guiding-network SoftAttPlusLTGCriterion
 
 Every loss divides by the batch size B, not by the mask sum. The equations
 are the JAX package's, so dtypes follow its promotion: log-probabilities
@@ -80,6 +82,30 @@ def review_net_ensemble_loss(log_prob, target, mask, top_pred_list, top_true,
     disc = sum(multilabel_margin_loss(tp, top_true, max_targets=max_targets)
                for tp in top_pred_list)
     return xe + disc * reason_weight / len(top_pred_list)
+
+
+def tv_loss(top_pred, top_true, *, max_targets=None):
+    """The eval-only thought-vector criterion (TVCriterion): the reason loss
+    of the last head alone."""
+    if isinstance(top_pred, (list, tuple)):
+        top_pred = top_pred[-1]
+    return multilabel_margin_loss(top_pred, top_true, max_targets=max_targets)
+
+
+def smooth_l1(x, y):
+    """torch.nn.SmoothL1Loss(size_average=False): summed, not averaged."""
+    d = (x - y).abs()
+    return torch.where(d < 1.0, 0.5 * d * d, d - 0.5).sum()
+
+
+def soft_att_plus_ltg_loss(log_prob, target, mask, gv, top_true, ltg_weight,
+                           gv_l1_penality, *, max_targets=None):
+    """The guiding-network criterion (SoftAttPlusLTGCriterion): masked XE +
+    the guiding vector's reason loss + its SmoothL1 pull toward zero. Kept
+    for the surface: no model of either package reads it."""
+    xe = language_model_loss(log_prob, target, mask)
+    gv_loss = multilabel_margin_loss(gv, top_true, max_targets=max_targets)
+    return xe + gv_loss * ltg_weight + smooth_l1(gv, torch.zeros_like(gv)) * gv_l1_penality
 
 
 # ---------------------------------------------------------------- SCST

@@ -1,10 +1,11 @@
 """Self-critical (SCST) reward assembly.
 
-Counterpart of ``recurrent_fusion_network_tpu/rewards/self_critical.py::
-compute_reward`` (the reference's get_rewards.py): score the sampled and the
-greedy rollout with CIDEr-D (optionally + BLEU-4), subtract the greedy
-baseline, weight, and broadcast each sentence's reward over its time steps.
-SPICE rewards are not ported (ROADMAP.md queue 1, M4 remainder): a positive
+Counterpart of ``recurrent_fusion_network_tpu/rewards/self_critical.py``
+(the reference's get_rewards.py): ``compute_reward`` scores the sampled and
+the greedy rollout with CIDEr-D (optionally + BLEU-4), subtracts the greedy
+baseline, weights, and broadcasts each sentence's reward over its time
+steps; ``get_self_critical_reward`` runs the greedy rollout first. SPICE
+rewards are not ported (ROADMAP.md queue 1, SPICE back ends): a positive
 ``spice_weight`` raises.
 """
 
@@ -22,7 +23,7 @@ def check_spice_weight(spice_weight: float) -> None:
     if spice_weight > 0:
         raise NotImplementedError(
             "SPICE rewards (spice_weight > 0) are not ported yet: the port has no "
-            "metrics/spice* (ROADMAP.md queue 1, M4 remainder)")
+            "metrics/spice* (ROADMAP.md queue 1, SPICE back ends)")
 
 
 def compute_reward(cider_scorer: CiderD, gen_result: np.ndarray, greedy_res: np.ndarray,
@@ -66,3 +67,25 @@ def compute_reward(cider_scorer: CiderD, gen_result: np.ndarray, greedy_res: np.
         scores, bleu4 = scores[:B], bleu4[:B]
     combined = cider_weight * scores + bleu4_weight * bleu4
     return np.repeat(combined[:, None], T, axis=1)
+
+
+def get_self_critical_reward(model, params, fc_feats, att_feats, gts, gen_result,
+                             cider_scorer: CiderD, *, greedy_sample_fn=None,
+                             **reward_kwargs) -> np.ndarray:
+    """Run the greedy baseline rollout and compute the rewards
+    (get_rewards.py:115-140). ``greedy_sample_fn(params, fc, att)`` overrides
+    the rollout; by default it is ``decoding.api.model_sample`` at beam 1,
+    arg-max, which on CUDA tensors runs ``additive_attention_fwd``."""
+    if greedy_sample_fn is None:
+        import torch
+
+        from ..decoding.api import model_sample
+
+        def greedy_sample_fn(params, fc, att):
+            with torch.inference_mode():
+                return model_sample(model, params, fc, att, beam_size=1, sample_max=True).seq
+
+    greedy = greedy_sample_fn(params, fc_feats, att_feats)
+    greedy_res = greedy.cpu().numpy() if hasattr(greedy, "cpu") else np.asarray(greedy)
+    gen = gen_result.cpu().numpy() if hasattr(gen_result, "cpu") else np.asarray(gen_result)
+    return compute_reward(cider_scorer, gen, greedy_res, gts, **reward_kwargs)

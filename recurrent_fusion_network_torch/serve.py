@@ -16,6 +16,14 @@ the inception nets; ``--backbone_arch``, default resnet101) it also answers
 JAX package, the backbone runs at 448 px with a 14 x 14 grid whatever the
 arch.
 
+The front end is the asyncio one (``decoding/aio_serve.py``) unless
+``--serve_frontend threads`` is given; ``--backbone_weights`` switches to
+the threading one, which alone answers ``/caption_image``. The CLI reads
+every flag of the training and eval CLIs, as the JAX serve CLI does; those
+of features the port does not have (``--serve_dp_devices`` above 1,
+``--checkpoint_backend orbax``) raise ``NotImplementedError`` with their
+ROADMAP entry.
+
 It runs on CUDA unless ``--device cpu`` is given, and raises when CUDA is
 absent otherwise. SIGTERM / SIGINT drain in-flight requests and exit 0.
 """
@@ -30,6 +38,7 @@ import torch
 from .config import merge_checkpoint_opt, parse_serve_opt
 from .convert import check_params, params_from_jax
 from .data.feature_extraction.backbones import build_backbone
+from .decoding.aio_serve import run_server_async
 from .decoding.http_serve import CaptionService, run_server
 from .device import resolve_device
 from .models import setup
@@ -78,11 +87,26 @@ def main(argv=None):
         service.close()
         print("shutdown complete", flush=True)
         return
+    frontend = opt.serve_frontend
+    if service.backbone is not None and frontend == "asyncio":
+        # /caption_image decodes images on the CPU; keep it off the loop
+        print("--backbone_weights set: using the threading front end "
+              "(/caption_image support)", flush=True)
+        frontend = "threads"
+    ready = (f"(batch {opt.serve_batch_size}, beam {opt.beam_size}, {opt.serve_dtype}, "
+             f"{service.device}, {frontend})")
+    if frontend == "asyncio":
+        fe = run_server_async(service, opt.host, opt.port)
+        print(f"caption service on {opt.host}:{fe.port} {ready}", flush=True)
+        stop.wait()
+        print("shutting down: draining in-flight requests", flush=True)
+        fe.stop(drain=True, timeout=opt.drain_timeout)
+        service.close()
+        print("shutdown complete", flush=True)
+        return
     httpd = run_server(service, opt.host, opt.port)
     host, port = httpd.server_address[:2]
-    print(f"caption service on {host}:{port} (batch {opt.serve_batch_size}, "
-          f"beam {opt.beam_size}, {opt.serve_dtype}, {service.device})",
-          flush=True)
+    print(f"caption service on {host}:{port} {ready}", flush=True)
     stop.wait()
     print("shutting down: draining in-flight requests", flush=True)
     httpd.shutdown()  # stop accepting; active handler threads continue

@@ -1,10 +1,11 @@
 """Structured training logs.
 
-The port's copy of ``JsonlLogger`` from
+The port's copy of ``JsonlLogger`` and ``MetricsLog`` from
 ``recurrent_fusion_network_tpu/utils/logging.py``. The reference logs by
 printing to stdout and by stashing history dicts into infos.pkl
 (train.py:173-177); the JSONL sink (``--json_log``) makes runs
-machine-readable without parsing stdout.
+machine-readable without parsing stdout, and ``MetricsLog`` keeps the
+history dicts under the infos.pkl keys.
 """
 
 from __future__ import annotations
@@ -50,3 +51,26 @@ class JsonlLogger:
             self._f.close()
             self._f = None
 
+
+class MetricsLog:
+    """In-memory history dicts with the reference's infos.pkl keys."""
+
+    def __init__(self):
+        self.loss_history = {}
+        self.lr_history = {}
+        self.ss_prob_history = {}
+        self.val_result_history = {}
+
+    def record_train(self, iteration, loss, lr, ss_prob=0.0):
+        self.loss_history[iteration] = loss
+        self.lr_history[iteration] = lr
+        self.ss_prob_history[iteration] = ss_prob
+
+    def record_val(self, iteration, loss, lang_stats, predictions):
+        self.val_result_history[iteration] = {
+            "loss": loss, "lang_stats": lang_stats, "predictions": predictions}
+
+    def as_infos(self):
+        return {"loss_history": self.loss_history, "lr_history": self.lr_history,
+                "ss_prob_history": self.ss_prob_history,
+                "val_result_history": self.val_result_history}

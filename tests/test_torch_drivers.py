@@ -445,6 +445,88 @@ def test_parse_opt_defaults_equal_the_jax_packages():
     assert t_config.parse_serve_opt([]).port == 8080
 
 
+def _jax_serve_options():
+    """({option: (default, choices)}, the pre-parser's options) of the JAX
+    serve CLI: its pre-parser's flags (read from the root serve.py) over the
+    whole parse_opt set (``config._add_all_flags``), which reads the rest of
+    the command line."""
+    import argparse
+    import ast
+
+    from recurrent_fusion_network_tpu.config import _add_all_flags
+
+    parser = argparse.ArgumentParser()
+    _add_all_flags(parser)
+    options = {a.option_strings[0]: (a.default, a.choices) for a in parser._actions
+               if a.option_strings and a.option_strings[0] != "-h"}
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "serve.py")) as f:
+        tree = ast.parse(f.read())
+    pre = set()
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                and node.func.attr == "add_argument"
+                and isinstance(node.func.value, ast.Name) and node.func.value.id == "pre"):
+            kw = {k.arg: ast.literal_eval(k.value) for k in node.keywords
+                  if k.arg in ("default", "choices")}
+            options[node.args[0].value] = (kw.get("default"), kw.get("choices"))
+            pre.add(node.args[0].value)
+    assert len(pre) == 10 and {"--serve_frontend", "--checkpoint_backend"} <= set(options)
+    return options, pre
+
+
+# the JAX serve options whose feature the port does not have: a value that
+# asks for it raises NotImplementedError naming its ROADMAP entry
+UNPORTED_SERVE_VALUES = {"--serve_dp_devices": ("2", "M10"),
+                         "--checkpoint_backend": ("orbax", "M11"),
+                         "--num_dp_devices": ("2", "M10"), "--num_mp_devices": ("2", "M10"),
+                         "--async_opt": ("1", "M10"), "--eval_ensemble_multi_gpu": ("1", "M10"),
+                         "--profile_steps": ("3", "M11")}
+
+
+def test_serve_cli_accepts_every_jax_serve_option():
+    """F4: every option of the JAX serve CLI, given a valid value (each
+    choice, or its default), parses in the port's serve parser and reaches
+    the options; one asking for an unported feature raises by name. The
+    front end defaults to asyncio, as the JAX CLI's does."""
+    from recurrent_fusion_network_tpu.config import parse_opt as j_parse
+
+    options, pre = _jax_serve_options()
+    for flag, (default, choices) in sorted(options.items()):
+        for value in choices or [default if default is not None else "x"]:
+            got = getattr(t_config.parse_serve_opt([flag, str(value)]), flag[2:])
+            # the pre-parser's flags as given, the rest as JAX parse_opt
+            # leaves them (--tied_att_keys -1 resolves to the profile's)
+            want = value if flag in pre else getattr(j_parse([flag, str(value)]), flag[2:])
+            assert got == want, (flag, value, got, want)
+    for flag, (value, entry) in UNPORTED_SERVE_VALUES.items():
+        assert flag in options
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{entry}"):
+            t_config.parse_serve_opt([flag, value])
+    opt = t_config.parse_serve_opt(["--serve_frontend", "threads", "--serve_dp_devices", "1",
+                                    "--checkpoint_backend", "pickle", "--port", "0"])
+    assert (opt.serve_frontend, opt.serve_dp_devices, opt.checkpoint_backend, opt.port) == (
+        "threads", 1, "pickle", 0)
+    default = t_config.parse_serve_opt([])
+    assert (default.serve_frontend, default.serve_dp_devices, default.port) == ("asyncio", 1, 8080)
+    with pytest.raises(SystemExit):  # argparse's choices, as in JAX
+        t_config.parse_serve_opt(["--serve_frontend", "uvloop"])
+
+
+def test_metrics_log_matches_jax():
+    from recurrent_fusion_network_torch.utils.logging import MetricsLog as TLog
+    from recurrent_fusion_network_tpu.utils.logging import MetricsLog as JLog
+
+    logs = (TLog(), JLog())
+    for log in logs:
+        log.record_train(1, 2.5, 5e-4)
+        log.record_train(2, 2.25, 4e-4, ss_prob=0.05)
+        log.record_val(2, 2.0, {"CIDEr": 0.7}, [{"image_id": 3, "caption": "a dog"}])
+    assert logs[0].as_infos() == logs[1].as_infos()
+    assert set(logs[0].as_infos()) == {"loss_history", "lr_history", "ss_prob_history",
+                                       "val_result_history"}
+
+
 def test_a_port_triples_saved_opt_holds_the_jax_keys_only(xe_runs, tmp_path):
     """The saved opt of a port triple (a feat_array run) and a port opt
     snapshot of a registry encoder (with its input_*_dir paths) have

@@ -122,3 +122,61 @@ def test_multi_att_lstm_step_matches_jax(maxout):
                                                rnn_size=R, maxout=maxout)
     for a, b in ((to, jo), (th, jh), (tc, jc)):
         _close(a, b)
+
+
+# ------------------------------------------------- the reference's extra criterions
+
+
+def _loss_inputs(seed=0, B=3, C=8, T=4, V=9):
+    g = np.random.default_rng(seed)
+    x = g.standard_normal((B, C)).astype(np.float32)
+    y = np.full((B, C), -1, np.int64)
+    y[:, 0] = 2
+    y[1, 1:4] = (5, 0, 7)
+    logits = g.standard_normal((B, T, V)).astype(np.float32)
+    lp = (logits - np.log(np.exp(logits).sum(-1, keepdims=True))).astype(np.float32)
+    tgt = g.integers(0, V, (B, T))
+    msk = np.ones((B, T), np.float32)
+    msk[2, 2:] = 0
+    return x, y, lp, tgt, msk
+
+
+@pytest.mark.parametrize("heads", ["list", "single"])
+def test_tv_loss_matches_jax(heads):
+    """The last head's reason loss, given the heads as a list or one head."""
+    import jax.numpy as jnp
+
+    from recurrent_fusion_network_torch.ops import losses as t_losses
+    from recurrent_fusion_network_tpu.ops import losses as j_losses
+
+    x, y, _, _, _ = _loss_inputs()
+    if heads == "list":
+        j_in, t_in = [jnp.asarray(x), jnp.asarray(2 * x)], [torch.from_numpy(x),
+                                                             torch.from_numpy(2 * x)]
+    else:
+        j_in, t_in = jnp.asarray(x), torch.from_numpy(x)
+    want = j_losses.tv_loss(j_in, jnp.asarray(y, jnp.int32))
+    got = t_losses.tv_loss(t_in, torch.from_numpy(y))
+    _close(got, want)
+    assert float(got) > 0
+
+
+def test_smooth_l1_and_soft_att_plus_ltg_loss_match_jax():
+    import jax.numpy as jnp
+
+    from recurrent_fusion_network_torch.ops import losses as t_losses
+    from recurrent_fusion_network_tpu.ops import losses as j_losses
+
+    x, y, lp, tgt, msk = _loss_inputs(seed=1)
+    a = np.random.default_rng(2).standard_normal((5, 7)).astype(np.float32) * 2
+    b = np.random.default_rng(3).standard_normal((5, 7)).astype(np.float32)
+    _close(t_losses.smooth_l1(torch.from_numpy(a), torch.from_numpy(b)),
+           j_losses.smooth_l1(jnp.asarray(a), jnp.asarray(b)))
+    want = torch.nn.SmoothL1Loss(reduction="sum")(torch.from_numpy(a), torch.from_numpy(b))
+    _close(t_losses.smooth_l1(torch.from_numpy(a), torch.from_numpy(b)), want.numpy())
+    got = t_losses.soft_att_plus_ltg_loss(torch.from_numpy(lp), torch.from_numpy(tgt),
+                                          torch.from_numpy(msk), torch.from_numpy(x),
+                                          torch.from_numpy(y), 0.5, 0.001)
+    ref = j_losses.soft_att_plus_ltg_loss(jnp.asarray(lp), jnp.asarray(tgt), jnp.asarray(msk),
+                                          jnp.asarray(x), jnp.asarray(y, jnp.int32), 0.5, 0.001)
+    _close(got, ref)

@@ -592,3 +592,56 @@ def test_train_rl_needs_cuda_unless_the_cpu_is_asked():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         t_rl.train_rl(topt, loader, _scorer(loader), max_iterations=1)
 
+
+
+def test_get_self_critical_reward_matches_jax():
+    """The greedy-baseline reward on a tiny RFNet with converted weights:
+    the default rollout (model_sample at beam 1, arg-max) gives JAX's greedy
+    tokens, and the rewards equal JAX's; greedy_sample_fn overrides the
+    rollout, as in JAX."""
+    from recurrent_fusion_network_torch.decoding.api import model_sample as t_model_sample
+    from recurrent_fusion_network_torch.rewards.self_critical import (
+        get_self_critical_reward as t_scr,
+    )
+    from recurrent_fusion_network_tpu.decoding.api import model_sample as j_model_sample
+    from recurrent_fusion_network_tpu.rewards.self_critical import (
+        get_self_critical_reward as j_scr,
+    )
+
+    jm, tm, jp = _models("tied")
+    jp = _np_tree(jp)
+    # larger logits and EOS held back, so the greedy captions are neither
+    # empty nor alike
+    jp["logit"] = dict(w=jp["logit"]["w"] * 4, b=jp["logit"]["b"].copy())
+    jp["logit"]["b"][0] = -3.0
+    tp = params_from_jax(jp)
+    fcs, atts, _, _, _ = _batch(seed=5, B=4)
+    tfc, tatt = [_t(x) for x in fcs], [_t(x) for x in atts]
+    jgreedy = np.asarray(j_model_sample(jm, jp, fcs, atts, beam_size=1, sample_max=True).seq)
+    with torch.inference_mode():
+        tgreedy = t_model_sample(tm, tp, tfc, tatt, beam_size=1, sample_max=True).seq
+    np.testing.assert_array_equal(tgreedy.numpy(), jgreedy)
+    assert (jgreedy[:, 0] > 0).all() and len({r.tobytes() for r in jgreedy}) > 1
+
+    df, ref_len, gts, _, _, _ = _reward_case(B_img=2, spi=2, T=TINY["seq_length"])
+    gts = [np.concatenate([jgreedy[:1], g[:, :jgreedy.shape[1]]]) for g in gts[:1]] + \
+        [g[:, :jgreedy.shape[1]] for g in gts[1:]]  # image 0's greedy row is a reference
+    gen = np.random.default_rng(6).integers(0, TINY["vocab_size"] + 1, jgreedy.shape)
+    gen[3] = gts[1][0]
+    kw = dict(cider_weight=0.8, bleu4_weight=0.5)
+    want = j_scr(jm, jp, fcs, atts, gts, gen, j_cider.CiderD(df, ref_len), **kw)
+    got = t_scr(tm, tp, tfc, tatt, gts, torch.from_numpy(gen), t_cider.CiderD(df, ref_len), **kw)
+    assert got.shape == gen.shape
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-15)
+    np.testing.assert_array_equal(
+        got, t_reward(t_cider.CiderD(df, ref_len), gen, tgreedy.numpy(), gts, **kw))
+    assert np.abs(got[:, 0]).max() > 0.1 and len(set(got[:, 0])) > 1
+
+    def fixed(params, fc, att):
+        assert params is tp and fc is tfc and att is tatt
+        return torch.zeros_like(tgreedy)
+
+    got0 = t_scr(tm, tp, tfc, tatt, gts, gen, t_cider.CiderD(df, ref_len),
+                 greedy_sample_fn=fixed, **kw)
+    np.testing.assert_array_equal(
+        got0, t_reward(t_cider.CiderD(df, ref_len), gen, np.zeros_like(gen), gts, **kw))

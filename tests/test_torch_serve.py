@@ -8,10 +8,13 @@ import http.client
 import io
 import json
 import os
+import queue
 import re
 import signal
 import subprocess
 import sys
+import threading
+import time
 
 import jax
 import numpy as np
@@ -159,6 +162,48 @@ def test_pipelined_map_keeps_order_and_window():
         list(pipelined_map(fn, [], depth=0))
 
 
+class ChildOutput:
+    """A child's stdout read on a thread, so that every wait for it has a
+    deadline."""
+
+    def __init__(self, proc):
+        self.seen = []
+        self._lines = queue.Queue()
+        self._thread = threading.Thread(target=self._read, args=(proc.stdout,), daemon=True)
+        self._thread.start()
+
+    def _read(self, stream):
+        for line in stream:
+            self._lines.put(line)
+        self._lines.put(None)
+
+    def wait_for(self, pattern, timeout):
+        """The match of the first line that matches ``pattern``."""
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                line = self._lines.get(timeout=max(0.0, deadline - time.monotonic()))
+            except queue.Empty:
+                raise AssertionError(f"no line matching {pattern!r} within {timeout} s:\n"
+                                     + "".join(self.seen)[-3000:]) from None
+            if line is None:
+                raise AssertionError(f"the child ended before {pattern!r}:\n"
+                                     + "".join(self.seen)[-3000:])
+            self.seen.append(line)
+            m = re.search(pattern, line)
+            if m:
+                return m
+
+    def text(self, timeout=30):
+        """Everything the child printed, once it has closed its stdout."""
+        self._thread.join(timeout)
+        while not self._lines.empty():
+            line = self._lines.get()
+            if line is not None:
+                self.seen.append(line)
+        return "".join(self.seen)
+
+
 def test_serve_cli_answers_and_drains_on_sigterm(jax_checkpoint):
     path, jmodel, _, _ = jax_checkpoint
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
@@ -167,16 +212,12 @@ def test_serve_cli_answers_and_drains_on_sigterm(jax_checkpoint):
         [sys.executable, "-m", "recurrent_fusion_network_torch.serve",
          "--model_path", path, "--load_model_id", "sv", "--device", "cpu",
          "--host", "127.0.0.1", "--port", "0", "--beam_size", "3",
-         "--serve_batch_size", "2"],
+         "--serve_batch_size", "2", "--serve_frontend", "threads"],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=REPO)
     try:
-        port = None
-        for line in p.stdout:
-            m = re.search(r"caption service on [\d.]+:(\d+)", line)
-            if m:
-                port = int(m.group(1))
-                break
-        assert port, "server never came up"
+        child = ChildOutput(p)
+        m = child.wait_for(r"caption service on [\d.]+:(\d+) .*threads", timeout=180)
+        port = int(m.group(1))
         (fcs, atts), = _requests(jmodel, 1, seed=2)
         conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
         conn.request("POST", "/caption", body=json.dumps(
@@ -186,8 +227,9 @@ def test_serve_cli_answers_and_drains_on_sigterm(jax_checkpoint):
         assert r.status == 200 and "caption" in got, got
         conn.close()
         p.send_signal(signal.SIGTERM)
-        out = p.stdout.read()
-        assert p.wait(timeout=60) == 0, out[-3000:]
+        rc = p.wait(timeout=60)
+        out = child.text()
+        assert rc == 0, out[-3000:]
         assert "shutdown complete" in out
     finally:
         if p.poll() is None:
