@@ -53,7 +53,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
               sites (stage I and II at B rows, the rollout's decoder at 2B
               lanes, the step's decoder at B rows); an f32 iteration at 16
               rows with the kernels vs with the plain versions patched in
-              (rollout tokens, then the step's loss and grads); 10
+              (rollout tokens, then the step's loss and grads); 5
               iterations through train_rl() with --rl_overlap 1 and again
               with 0, the launch counters reset just before and read just
               after each (130 + 65 launches per iteration, none on the
@@ -61,10 +61,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
               split into batch copy, rollout, host reward and grad step;
               one profiled iteration; peak memory;
   8. drivers: the training and evaluation CLIs on a data set at the flagship
-              widths written once under build/ and read again by phase 14
-              (9,487 words, 300 / 100 / 100
+              widths written once under build/ and read again by phases
+              10, 14 and 16 (9,487 words, 300 / 100 / 100
               train / val / test images x 5 captions, packed stores of the
-              five registry encoders: 1.6 GB; 25 GB free asked for, as a
+              five registry encoders, with the test images' flip
+              features: 1.9 GB; 25 GB free asked for, as a
               flagship triple is 5.4 GB): main (bf16, 100 images x 5, 7
               steps, a boundary at 6 with beam-3 eval_split, the 8 metrics
               and the triples), eval of the best triple on the test split,
@@ -126,7 +127,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
               added seed);
  11. remat, optimizers, data front: (a) phase 6's B = 512 bf16 batch with
               dropout at the flagship rates (0.3, scripts/train_recurrent_
-              fusion_model.sh) and ss_prob 0.3, 5 steps each without remat,
+              fusion_model.sh) and ss_prob 0.3, 4 steps each without remat,
               under --remat_policy full and under save_ctx (and one more
               step without, the spread of two runs), from the same params
               and generator state: the first step's loss and every grad
@@ -147,10 +148,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
               train batches from the sharded stores (the native gather)
               equal byte for byte to the packed stores', with the loader's
               fetch ms of each; main (bf16, 100 x 5, --use_remat 1
-              --remat_policy save_ctx --optim rmsprop, 11 steps, the
-              boundary at 10) and main_rl --cider_df <prepro_ngrams' pickle>
+              --remat_policy save_ctx --optim rmsprop, 7 steps, the
+              boundary at 6) and main_rl --cider_df <prepro_ngrams' pickle>
               --load_lr 1 from its best triple (f32, 51 x 5, iterations
-              11..16, the boundary at 16); exact launches, finite metrics.
+              7..12, the boundary at 12); exact launches, finite metrics.
               Phase 8's, 10's and 11's CLI shapes are then checked against
               the plain versions as in phase 8;
  12. raw images: (a) the five runbook backbones at their native geometry
@@ -185,8 +186,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
  13. serving front ends, the greedy-baseline reward, the runbook: (a)
               phase 4's flagship in bf16 (serve batch 16, beam 3) behind the
               asyncio front end, then the threading one: 64 keep-alive
-              clients send the same 256 npz requests to each; captions (one
-              word per token) equal across the two and to the in-process
+              clients send the same 128 npz requests to each, two a
+              connection; captions (one word per token) equal across the
+              two and to the in-process
               decode of the same rows in batches of 16; 64 launches per
               decoded batch; req/s, latency p50 / p95, batches, padded rows;
               then the serve CLI over a flagship checkpoint with its default
@@ -197,8 +199,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
               ms; (c) DRY_RUN=1 bash recurrent_fusion_network_torch/scripts/
               run_coco.sh (NUM_SEEDS 2, DATA_DIR under build/, 40 GB free
               asked for) and again with STAGES=eval, every stage a port CLI
-              on the card under this script's --launch-probe (each
-              command's launches counted by shape in its own process):
+              on the card under this script's launch probe, in its own
+              process forked by --probe-server after torch's import (each
+              command's launches counted by shape in its process):
               ranks 0 and 1 hold their XE and rl_ triples, both eval logs
               finite metrics, seconds per stage; the run's files deleted.
               Every shape of (a)-(c) is checked against the plain versions.
@@ -211,16 +214,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
               SPICE hook a run, the http run's rewards equal to the approx
               scorer's on the same rollouts, finite losses, iteration ms and
               the reward's ms split into SPICE and CIDEr-D; then the S = 2
-              SCST fleet, 3 iterations, approx; (b) on phase 8's data set
+              SCST fleet, 2 iterations, approx; (b) on phase 8's data set
               (25 GB free asked for under build/orbax_*, deleted when
-              done): main bf16 100 x 5, steps 0..10 with
-              boundaries at 5 and 10, with --checkpoint_backend pickle,
-              orbax --checkpoint_async 0 and orbax --checkpoint_async 1:
+              done): main bf16 100 x 5 with --checkpoint_backend orbax
+              --checkpoint_async 0 and 1, steps 0..10 with boundaries at
+              5 and 10 (the async run's second save waits for the first
+              one's write in flight), and with --checkpoint_backend pickle,
+              steps 0..6 with the boundary at 5:
               each triple's bytes, the seconds until save_checkpoint returns
               and until its write is done, the step loop's stall at the
               boundary; eval and eval_ensemble of the sync run's -best DCP
               triple; a third run resumed from the sync run's step-5
-              rolling DCP triple to step 10, its losses against the
+              rolling DCP triple to step 10 (no boundary), its losses against the
               uninterrupted run's (bf16 tolerance of phase 6, bit for bit
               reported); (c) main with --profile_dir --profile_start 3
               --profile_steps 2 for 6 steps: one Chrome trace whose kernel
@@ -254,20 +259,44 @@ Phases, in order; any failure exits non-zero and prints no result line:
               matching the pair's grads on every leaf within rtol 1e-4 /
               atol 1e-6; each rank's launches equal to the single-process
               run's; an S = 2 fleet over the two ranks, each seed's losses
-              and final params bit for bit the single-process fleet's; a
-              SIGTERM to rank 1 alone while both train stops both at one
-              boundary with exit 0, rank 0 writing the triple; (c) step ms
-              per rank with the all-reduce's ms split out, peak GB per
-              process, launches per rank against the single-process ones,
-              and the NCCL pair across two cards where the machine has two
-              (else a line saying it was not run). Every shape of (a) and
-              (b) is checked against the plain versions.
+              and final params bit for bit the single-process fleet's; the
+              same pair laid out as dp 1 x mp 2 (--num_mp_devices 2, the
+              flagship's logit and embedding split 4744 / 4744): the XE f32
+              run at 512 rows on each rank for 3 steps, the boundary at the
+              last, its losses and the first step's gathered grads within
+              rtol 1e-4 / atol 1e-6 of the single-process XE run's on every
+              leaf, the final params and grads bit for bit on both ranks,
+              65 + 65 launches a step a rank (and 65 + 64 for the
+              boundary's eval), rank 0's triple the final params bit for
+              bit; a SIGTERM to rank 1 alone while both train stops both
+              at one boundary with exit 0, rank 0 writing the triple; (c)
+              step ms per rank with the all-reduce's (the mp collectives')
+              ms split out, peak GB per process, launches per rank against
+              the single-process ones, and the NCCL pair across two cards
+              where the machine has two (else a line saying it was not
+              run). Every shape of (a) and (b) is checked against the plain
+              versions.
+ 16. the device meshes (a single-process list of devices; here cuda:0
+              twice, so no speed-up is possible): (b) a B = 512 beam-3 bf16
+              CaptionServer on the mesh against the one-device server, the
+              same 512 requests: tokens identical, 2 x 64 launches a batch,
+              captions/s of both beside phase 5's; (c) eval_ensemble of two
+              flagship f32 members on phase 8's 100 test images on the mesh
+              against no mesh: predictions identical, 2 x 2 x 64 launches;
+              (d) the diff-feat ensemble of five ReviewNets at published
+              widths, member i on encoder i, through eval_ensemble on the
+              same images (f32, beam 3): predictions with the kernels equal
+              those with the plain versions, 5 x 24 launches, the 8 metrics
+              finite. Counters reset just before and read just after each
+              path; every shape is checked against the plain versions.
 The line before the last is the kernels JSON, the last line the device JSON.
 
 ``python3 chip_smoke.py --launch-probe LOG -m MODULE ARGS [--and-then -m
 MODULE ARGS ...]`` runs each module in turn as ``python -m`` does and
-appends its launches by shape to LOG (the runbook's interpreter in phase
-13, the world-1 CLI runs in phase 15);
+appends its launches by shape to LOG (the world-1 CLI runs in phase 15);
+``python3 chip_smoke.py --probe-server SOCK LOG`` forks one such probe for
+each command a client sends to SOCK (the runbook's interpreter in phase
+13);
 ``python3 chip_smoke.py --dp-pair-rank DIR`` is one rank of phase 15's
 gloo pair.
 """
@@ -1450,9 +1479,10 @@ _DRIVER_DATA = {}
 
 
 def driver_data(model):
-    """Phase 8's data set (``write_driver_dataset``, seed 0), written once
-    under build/data_* on the first call and read by phases 8 and 14;
-    removed when the script exits. -> (argv of the data flags, GB of
+    """Phase 8's data set (``write_driver_dataset``, seed 0, with the test
+    images' flip features), written once under build/data_* on the first
+    call and read by phases 8, 10, 14 and 16; removed when the script
+    exits. -> (argv of the data flags, GB of
     features, seconds this call spent writing it: 0 after the first)."""
     import atexit
     import tempfile
@@ -1463,7 +1493,7 @@ def driver_data(model):
         root = tempfile.mkdtemp(prefix="data_", dir=build)
         atexit.register(shutil.rmtree, root, ignore_errors=True)
         t0 = time.perf_counter()
-        argv, gb = write_driver_dataset(root, model)
+        argv, gb = write_driver_dataset(root, model, flip_split="test")
         _DRIVER_DATA.update(argv=argv, gb=gb, seconds=time.perf_counter() - t0)
         return argv, gb, _DRIVER_DATA["seconds"]
     return _DRIVER_DATA["argv"], _DRIVER_DATA["gb"], 0.0
@@ -2282,12 +2312,12 @@ def _fleets(torch, model, card, counters, recorder, root, main_cli, main_rl_cli,
     from recurrent_fusion_network_torch.training.checkpoint import load_checkpoint
 
     S, per_eval = FLEET_SEEDS, 65 + 64
-    t0 = time.perf_counter()
-    data_argv, data_gb = write_driver_dataset(root, model, seed=1, flip_split="test")
+    # phase 8's data set (written with the test images' flip features)
+    data_argv, data_gb, _ = driver_data(model)
     mem_gb, free_gb = host_state()
-    log(f"fleets: data set of {data_gb:.2f} GB of features (with the test images' flip "
-        f"features) written in {time.perf_counter() - t0:.2f} s; {free_gb:.1f} GB free on "
-        f"disk, {mem_gb:.1f} GB of host memory available")
+    log(f"fleets: phase 8's data set ({data_gb:.2f} GB of features, with the test images' "
+        f"flip features); {free_gb:.1f} GB free on disk, {mem_gb:.1f} GB of host memory "
+        f"available")
     ck = os.path.join(root, "checkpoint")
     results = os.path.join(root, "eval_results")
     common = data_argv + ["--device", DEVICE, "--checkpoint_path", ck, "--eval_results_dir",
@@ -2385,7 +2415,7 @@ def _fleets(torch, model, card, counters, recorder, root, main_cli, main_rl_cli,
 # scripts/train_recurrent_fusion_model.sh's rates
 FLAGSHIP_DROPOUT = dict(drop_prob_lm=0.3, drop_prob_reason=0.3, drop_prob_fusion=0.3)
 REMAT_SS_PROB = 0.3
-REMAT_STEPS = 5  # per variant: the first (grads checked) and the second not timed (was 12)
+REMAT_STEPS = 4  # per variant: the first (grads checked) and the second not timed (12, then 5)
 REMAT_VARIANTS = (("off", False, "save_ctx", (65, 65)), ("off_again", False, "save_ctx", (65, 65)),
                   ("full", True, "full", (130, 65)), ("save_ctx", True, "save_ctx", (65, 65)))
 OPTIMIZERS = {"rmsprop": dict(optim="rmsprop", optim_momentum=0.9),
@@ -2393,7 +2423,7 @@ OPTIMIZERS = {"rmsprop": dict(optim="rmsprop", optim_momentum=0.9),
               "adadelta": dict(optim="adadelta")}
 OPTIM_STEPS = 3
 FRONT_SHARD, FRONT_COMPARED = 64, 3  # shard rows; train batches compared and timed
-FRONT_XE_EVERY, FRONT_RL_ITERS = 10, 6
+FRONT_XE_EVERY, FRONT_RL_ITERS = 6, 6  # FRONT_XE_EVERY was 10 (cut for time)
 FRONT_FREE_GB = 25  # 1.6 GB packed + 1.6 GB sharded, a 5.4 GB triple and an rl_ one
 PHASE11_RUNS = ("remat_off", "remat_full", "remat_save_ctx", "optimizers", "front_xe",
                 "front_scst")
@@ -3304,7 +3334,9 @@ def raw_images(torch, aa, card, counters):
 
 # ---- phase 13: the asyncio front end, the greedy-baseline reward, the runbook
 
-AIO_CLIENTS, AIO_REQUESTS = 64, 256  # keep-alive clients, requests over them (was 512)
+# keep-alive clients and the requests over them, two a connection, so each
+# connection carries a second request (512, then 256, requests before)
+AIO_CLIENTS, AIO_REQUESTS = 64, 128
 AIO_DRAIN_S = 30  # the serve CLI's --drain_timeout in the SIGTERM check
 SC_REPS = 5  # timed repeats of the greedy-baseline reward and its two parts
 RUNBOOK_FREE_GB = 40  # two seeds' XE and rl_ flagship triples (5.4 GB each) and links
@@ -3696,6 +3728,87 @@ def launch_probe(log_path, argv):
                     "bwd": [[list(k), v["run"]] for k, v in recorder.bwd.items()]}) + "\n")
 
 
+# the runbook's interpreter: a client that hands its command, environment,
+# directory and stdin / stdout / stderr to the probe server and exits with
+# the status of the process the server forked for it
+PROBE_CLIENT = """#!{python}
+import json, os, socket, sys
+s = socket.socket(socket.AF_UNIX)
+s.connect({sock!r})
+socket.send_fds(s, [b"c"], [0, 1, 2])
+s.sendall(json.dumps({{"argv": sys.argv[1:], "env": dict(os.environ),
+                      "cwd": os.getcwd()}}).encode())
+s.shutdown(socket.SHUT_WR)
+reply = b""
+while True:
+    chunk = s.recv(64)
+    if not chunk:
+        break
+    reply += chunk
+code = int(reply)
+sys.exit(code if code >= 0 else 128 - code)
+"""
+
+
+def probe_server(sock_path, log_path):
+    """``chip_smoke.py --probe-server SOCK LOG``: the runbook's stage
+    processes, each forked from this one once torch (with its compiler
+    stack) and the kernels' module are imported (CUDA untouched, no thread
+    started), so a stage pays neither the interpreter's start nor torch's
+    import; each child then runs
+    ``launch_probe(LOG, ...)`` on the client's command, environment,
+    directory and standard streams (``PROBE_CLIENT``) and exits as a
+    process does (threads joined, atexit run). One client at a time (the
+    runbook's stages run one after another); the status goes back to the
+    client. Returns only in a child, its exit code."""
+    import socket
+
+    sys.path.insert(0, REPO)
+    import torch  # noqa: F401 -- imported once, before the forks
+    # torch's compiler stack, which a stage would import itself on its first
+    # decomposed op (the backbones' shapes on the meta device): about 2 s
+    import torch._dynamo  # noqa: F401
+
+    from recurrent_fusion_network_torch.kernels import additive_attention  # noqa: F401
+
+    srv = socket.socket(socket.AF_UNIX)
+    srv.bind(sock_path)
+    srv.listen(4)
+    while True:
+        conn, _ = srv.accept()
+        with conn:
+            _, fds, _, _ = socket.recv_fds(conn, 1, 3)
+            body = b""
+            while True:
+                chunk = conn.recv(1 << 16)
+                if not chunk:
+                    break
+                body += chunk
+            req = json.loads(body)
+            pid = os.fork()
+            if pid == 0:
+                srv.close()
+                conn.close()
+                for target, fd in enumerate(fds):
+                    os.dup2(fd, target)
+                    os.close(fd)
+                os.chdir(req["cwd"])
+                os.environ.clear()
+                os.environ.update(req["env"])
+                try:
+                    launch_probe(log_path, req["argv"])
+                except SystemExit as e:
+                    if e.code is None or isinstance(e.code, int):
+                        return e.code or 0
+                    print(e.code, file=sys.stderr)
+                    return 1
+                return 0
+            for fd in fds:
+                os.close(fd)
+            _, status = os.waitpid(pid, 0)
+            conn.sendall(str(os.waitstatus_to_exitcode(status)).encode())
+
+
 def eval_metrics(path, what):
     import re
 
@@ -3726,11 +3839,24 @@ def runbook_phase(torch, card, recorder):
     root = tempfile.mkdtemp(prefix="runbook_", dir=build)
     run_id = f"chipsmoke{os.getpid()}"
     probe_log = os.path.join(root, "launches.jsonl")
+    sock = os.path.join(root, "probe.sock")
     python = os.path.join(root, "python")
     with open(python, "w") as f:
-        f.write(f'#!/bin/sh\nexec "{sys.executable}" "{os.path.abspath(__file__)}" '
-                f'--launch-probe "{probe_log}" "$@"\n')
+        f.write(PROBE_CLIENT.format(python=sys.executable, sock=sock))
     os.chmod(python, 0o755)
+    server_err = os.path.join(root, "probe_server.err")
+    with open(server_err, "w") as err:
+        server = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--probe-server", sock, probe_log],
+                                  start_new_session=True, stdout=err, stderr=err)
+    deadline = time.perf_counter() + 120
+    while not os.path.exists(sock):
+        if server.poll() is not None or time.perf_counter() > deadline:
+            server.kill()
+            with open(server_err) as f:
+                raise AssertionError(f"runbook: the probe server did not start (exit "
+                                     f"{server.poll()}): {f.read()[-3000:]}")
+        time.sleep(0.1)
     env = dict(os.environ, DRY_RUN="1", DATA_DIR=os.path.join(root, "data"), ID=run_id,
                NUM_SEEDS=str(RUNBOOK_SEEDS), PYTHON=python, PYTHONUNBUFFERED="1")
     script = os.path.join(REPO, "recurrent_fusion_network_torch", "scripts", "run_coco.sh")
@@ -3789,6 +3915,8 @@ def runbook_phase(torch, card, recorder):
                 f"{metrics['single']}, ensemble {metrics['ensemble']} on {card}")
         out["free_gb"] = free_gb
     finally:
+        os.killpg(server.pid, signal.SIGKILL)  # the server and any child left
+        server.wait()
         for path in glob.glob(os.path.join(ck, f"*{run_id}*")) + glob.glob(
                 os.path.join(logs, f"*{run_id}*")):
             os.remove(path)
@@ -3824,9 +3952,10 @@ def phase13(torch, aa, model, card, scorer):
 # ------------------------------------------- 14. SPICE rewards, orbax, trace
 
 SPICE_ITERS = 4  # SCST iterations per SPICE back end (phase 7's batch; was 10)
-SPICE_FLEET_ITERS = 3  # the S = 2 SCST fleet's iterations with SPICE
-# XE steps 0..10, boundaries at 5 and 10 (were 10, 21); the resumed
-# run's 5 steps give DriverProbe its two steady gaps
+SPICE_FLEET_ITERS = 2  # the S = 2 SCST fleet's iterations with SPICE (was 3)
+# XE steps 0..10, boundaries at 5 and 10 (were 10, 21), for the DCP runs;
+# 0..6 for the pickle run (cut from 0..10); the resumed run's 5 steps give
+# DriverProbe its two steady gaps
 ORBAX_EVERY, ORBAX_STEPS = 5, 11
 ORBAX_FREE_GB = 25  # data set ~1.6 GB; at most three 5.4 GB flagship triples at a time
 TRACE_STEPS, TRACE_START, TRACE_LEN = 6, 3, 2  # --max_iterations, --profile_start, _steps
@@ -4112,21 +4241,26 @@ def _orbax_checkpoints(torch, model, card, counters, recorder, root, main_cli, e
     modes = {"pickle": ["--checkpoint_backend", "pickle"],
              "dcp_sync": ["--checkpoint_backend", "orbax", "--checkpoint_async", "0"],
              "dcp_async": ["--checkpoint_backend", "orbax", "--checkpoint_async", "1"]}
-    n_bounds = (ORBAX_STEPS - 1) // ORBAX_EVERY
-    expect = (65 * ORBAX_STEPS + per_eval * n_bounds, 65 * ORBAX_STEPS)
     out, losses = {}, {}
     snap = os.path.join(root, "snapshot")
     for mode, flags in modes.items():
+        # the DCP runs to ORBAX_STEPS (two boundaries: the resume follows
+        # the sync run, and the async run's second save waits for the first
+        # one's write in flight); the pickle run one step past the first
+        # boundary, whose fetch gap is its stall (cut for time)
+        steps = ORBAX_EVERY + 2 if mode == "pickle" else ORBAX_STEPS
+        n_bounds = (steps - 1) // ORBAX_EVERY
+        expect = (65 * steps + per_eval * n_bounds, 65 * steps)
         ck = os.path.join(root, mode)
         log_path = os.path.join(root, f"{mode}.jsonl")
         timer = SaveTimer(snap if mode == "dcp_sync" else None)
         with timer.patch("ox"):
             infos, run = run_driver(
                 torch, main_cli, xe + flags + ["--checkpoint_path", ck, "--max_iterations",
-                                               str(ORBAX_STEPS), "--json_log", log_path],
+                                               str(steps), "--json_log", log_path],
                 counters, expect, f"orbax {mode}", recorder, f"orbax_{mode}")
         losses[mode] = infos["loss_history"]
-        if not all(math.isfinite(losses[mode][i]) for i in range(ORBAX_STEPS)):
+        if not all(math.isfinite(losses[mode][i]) for i in range(steps)):
             raise AssertionError(f"orbax {mode}: losses {losses[mode]}")
         del infos
         vals = jsonl(log_path, "val")
@@ -4142,15 +4276,15 @@ def _orbax_checkpoints(torch, model, card, counters, recorder, root, main_cli, e
         run.update(files=files, triple_bytes=sum(files[f] for f in rolling), saves=saves,
                    eval_s=[v["seconds"] for v in vals],
                    boundary_save_s=[v["save_seconds"] for v in vals],
-                   boundary_gaps_ms=boundary_gaps(run, ORBAX_EVERY, ORBAX_STEPS),
+                   boundary_gaps_ms=boundary_gaps(run, ORBAX_EVERY, steps),
                    losses=losses[mode])
         # the stall a boundary adds to the step loop: its fetch gap less a
         # steady step and the boundary's eval
         run["stall_ms"] = [g - run["step_ms"] - e * 1e3 for g, e in
                            zip(run["boundary_gaps_ms"], run["eval_s"])]
         out[mode] = run
-        log(f"orbax {mode}: XE bf16 B=100x5, {ORBAX_STEPS} steps with boundaries at "
-            f"{list(range(ORBAX_EVERY, ORBAX_STEPS, ORBAX_EVERY))}; steady step "
+        log(f"orbax {mode}: XE bf16 B=100x5, {steps} steps with boundaries at "
+            f"{list(range(ORBAX_EVERY, steps, ORBAX_EVERY))}; steady step "
             f"{run['step_ms']:.2f} ms; boundary fetch gaps "
             f"{[round(g, 1) for g in run['boundary_gaps_ms']]} ms (eval "
             f"{[round(e, 3) for e in run['eval_s']]} s, host time in the save "
@@ -4186,13 +4320,15 @@ def _orbax_checkpoints(torch, model, card, counters, recorder, root, main_cli, e
                 f"eval_ensemble of it: metrics {out['eval_ensemble']['stats']}, "
                 f"{out['eval_ensemble']['wall_s']:.2f} s on {card}")
             # a third run resumes the first boundary's rolling DCP triple and
-            # runs to the end
+            # runs to the end, without a boundary of its own (its write at
+            # the last step was cut for time)
             ck_r = os.path.join(root, "resumed")
             infos, resumed = run_driver(
                 torch, main_cli,
                 xe + flags + ["--checkpoint_path", ck_r, "--max_iterations", str(ORBAX_STEPS),
-                              "--start_from", snap, "--load_model_id", "ox"],
-                counters, (65 * (ORBAX_STEPS - ORBAX_EVERY - 1) + per_eval,
+                              "--start_from", snap, "--load_model_id", "ox",
+                              "--save_checkpoint_every", str(10 ** 6)],
+                counters, (65 * (ORBAX_STEPS - ORBAX_EVERY - 1),
                            65 * (ORBAX_STEPS - ORBAX_EVERY - 1)),
                 "orbax resume", recorder, "orbax_resume")
             after = range(ORBAX_EVERY + 1, ORBAX_STEPS)
@@ -4211,7 +4347,7 @@ def _orbax_checkpoints(torch, model, card, counters, recorder, root, main_cli, e
                 f"bit for bit {got == want}, max |diff| {diff:.3e} (bf16 tolerance rtol "
                 f"{tol['rtol']} atol {tol['atol']}); steady step {resumed['step_ms']:.2f} ms "
                 f"on {card}")
-            shutil.rmtree(ck_r)
+            shutil.rmtree(ck_r, ignore_errors=True)
             shutil.rmtree(snap)
         shutil.rmtree(ck)
     out["trace"] = trace_window(torch, card, counters, recorder, root, main_cli, common)
@@ -4323,12 +4459,20 @@ SWITCH_LEAVES = ("['reason_individual']", "['reason_linear']", "['review1']", "[
 SWITCH_LEAF_TOL = dict(rtol=1e-4, atol=1e-5)
 PAIR_TIMEOUT_S = 480
 PAIR_DEVICE = "cuda:0"  # both ranks of the gloo pair share the card
+PAIR_PORTS = "CHIP_SMOKE_PAIR_PORTS"  # the pair's three rendezvous ports, comma-separated
+# the pair's dp 1 x mp 2 XE run (--num_mp_devices 2): the pair XE run's
+# batch and steps, the boundary at the last step (a beam-3 eval of the 100
+# val images in one batch, 65 + 64 launches, and the triple of the final
+# params); each rank runs the whole replicated forward
+MP_PAIR_ARGS = ["--num_mp_devices", "2", "--save_checkpoint_every", str(PAIR_STEPS - 1),
+                "--val_images_use", "100", "--beam_size", "3", "--language_eval", "0"]
+MP_PAIR_LAUNCHES = (65 * PAIR_STEPS + 65 + 64, 65 * PAIR_STEPS)
 # phase 15's runs and their dtypes
 PHASE15_RUNS = {"dp_solo_xe": "bfloat16", "dp_nccl_xe": "bfloat16", "dp_solo_rl": "float32",
                 "dp_nccl_rl": "float32", "dp_solo_pair_xe": "float32", "dp_pair_xe": "float32",
                 "dp_solo_pair_scst": "float32", "dp_pair_scst": "float32",
                 "dp_solo_pair_fleet": "bfloat16", "dp_pair_fleet": "bfloat16",
-                "dp_pair_preempt": "bfloat16"}
+                "dp_pair_preempt": "bfloat16", "mp_pair_xe": "float32"}
 
 
 def quiet(*_args, **_kwargs):
@@ -4549,6 +4693,59 @@ class StepTimer:
         med = lambda xs: statistics.median(xs) if xs else None  # noqa: E731
         return dict(step_ms=self.step_ms, step_median_ms=med(self.step_ms),
                     all_reduce_ms=self.reduce_ms, all_reduce_median_ms=med(self.reduce_ms))
+
+
+class MpStepTimer(StepTimer):
+    """``StepTimer`` with the ms of the mp collectives inside each step
+    (``parallel/mesh.py``'s ``_all_gather`` and ``_all_reduce``, each timed
+    with a synchronise on either side) summed per step."""
+
+    def __init__(self, torch):
+        super().__init__(torch)
+        self.mp_ms, self._acc = [], None
+
+    def factory(self, make):
+        timed = super().factory(make)
+
+        def wrapped(*a, **kw):
+            step = timed(*a, **kw)
+
+            def call(*args, **kws):
+                self._acc = 0.0
+                try:
+                    return step(*args, **kws)
+                finally:
+                    self.mp_ms.append(self._acc)
+                    self._acc = None
+            return call
+        return wrapped
+
+    @contextlib.contextmanager
+    def collectives(self):
+        from unittest import mock
+
+        from recurrent_fusion_network_torch.parallel import mesh as mesh_mod
+
+        def timed(fn):
+            def call(*a, **kw):
+                if self._acc is None:  # outside a step: the boundary's gathers
+                    return fn(*a, **kw)
+                self.torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                self.torch.cuda.synchronize()
+                self._acc += (time.perf_counter() - t0) * 1e3
+                return out
+            return call
+
+        with mock.patch.object(mesh_mod, "_all_gather", timed(mesh_mod._all_gather)), \
+                mock.patch.object(mesh_mod, "_all_reduce", timed(mesh_mod._all_reduce)):
+            yield
+
+    def summary(self):
+        med = statistics.median(self.mp_ms) if self.mp_ms else None
+        return dict(super().summary(), mp_collective_ms=self.mp_ms,
+                    mp_collective_median_ms=med)
 
 
 def params_digest(torch, tree):
@@ -4776,11 +4973,75 @@ def pair_runs(torch, spec, mesh, counters, recorder, prefix):
     return out, grads, switch.record
 
 
+def mp_pair_run(torch, spec, mesh, counters, recorder, out_dir, rank):
+    """The pair's dp 1 x mp 2 XE run (``mesh`` from ``make_mesh_2d(1, 2)``):
+    the pair XE run's options with --num_mp_devices 2, PAIR_STEPS steps,
+    the boundary at the last. -> (results: losses, launches, step and mp
+    collective ms, peak GB, digests of the final params and of the first
+    step's grads, both gathered, and on rank 0 whether the boundary's
+    triple reads back as the final params bit for bit; the first step's
+    grads gathered to the full tree, on the host, by path)."""
+    from unittest import mock
+
+    from recurrent_fusion_network_torch.config import parse_opt
+    from recurrent_fusion_network_torch.convert import params_from_jax
+    from recurrent_fusion_network_torch.data.build import build_loader
+    from recurrent_fusion_network_torch.parallel.mesh import gather_params_2d
+    from recurrent_fusion_network_torch.training import checkpoint, train_loop
+
+    ck = os.path.join(out_dir, "mp_ck")
+    opt = parse_opt(spec["data_argv"] + PAIR_XE_ARGS + [
+        "--device", DEVICE, "--max_iterations", str(PAIR_STEPS), "--seed", "0",
+        "--losses_log_every", "1", "--eval_results_dir", os.path.join(out_dir, "mp_er"),
+        "--checkpoint_path", ck, "--id", "mp"] + MP_PAIR_ARGS)
+    loader = build_loader(opt)
+    spies, timer = [], MpStepTimer(torch)
+    real_make = train_loop.make_optimizer
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters(counters)
+        with mock.patch.object(train_loop, "make_optimizer",
+                               lambda o: spies.append(GradSpy(real_make(o))) or spies[-1]), \
+                mock.patch.object(train_loop, "make_train_step",
+                                  timer.factory(train_loop.make_train_step)), \
+                timer.collectives(), recorder.run("mp_pair_xe"):
+            infos = train_loop.train(opt, loader, max_iterations=PAIR_STEPS, log_fn=quiet,
+                                     mesh=mesh)
+        torch.cuda.synchronize()
+        launches = read_counters(counters, "mp pair xe")
+    finally:
+        loader.close()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    shard = spies[0].grads
+    shapes = {"logit_w": list(shard["logit"]["w"].shape), "embed": list(shard["embed"].shape)}
+    grads = {p: g.cpu() for p, g in _paths(gather_params_2d(mesh, shard))}
+    final = infos["final_params"]
+    res = dict(loss_history=[infos["loss_history"][i] for i in range(PAIR_STEPS)],
+               launches=launches, peak_gb=peak_gb, shard_shapes=shapes,
+               final_digest=params_digest(torch, final),
+               grads_digest=params_digest(torch, grads), **timer.summary())
+    if rank == 0:
+        t0 = time.perf_counter()
+        saved, saved_infos = checkpoint.load_checkpoint(ck, "mp", 0, best=False)
+        saved = dict(_paths(params_from_jax(saved)))
+        res["triple_equal"] = saved_infos["iter"] == PAIR_STEPS and sorted(saved) == sorted(
+            p for p, _ in _paths(final)) and all(
+            torch.equal(t.cpu().view(torch.int32), saved[p].view(torch.int32))
+            for p, t in _paths(final))
+        res["triple_read_s"] = time.perf_counter() - t0
+        del saved
+    del infos, spies, final, shard
+    torch.cuda.empty_cache()
+    return res, grads
+
+
 def dp_pair_rank(out_dir):
     """``chip_smoke.py --dp-pair-rank DIR``: one rank of the gloo pair on
-    cuda:0 (the environment of torch.distributed.run set by the parent):
-    ``pair_runs`` over the pair, then an XE run until a SIGTERM reaches
-    either rank. Writes DIR/rank{r}.json and DIR/switches{r}.pt (the XE
+    cuda:0 (the environment of torch.distributed.run set by the parent,
+    with three rendezvous ports in PAIR_PORTS): ``pair_runs`` over the pair,
+    the pair joined again as dp 1 x mp 2 (``mp_pair_run``), then joined as
+    dp 2 for an XE run until a SIGTERM reaches either rank. Writes DIR/rank{r}.json and DIR/switches{r}.pt (the XE
     step's first choices), and rank 0 the first-step grads to
     DIR/grads.pt."""
     import torch
@@ -4792,12 +5053,21 @@ def dp_pair_rank(out_dir):
     from recurrent_fusion_network_torch.data.build import build_loader
     from recurrent_fusion_network_torch.kernels import additive_attention as aa
     from recurrent_fusion_network_torch.parallel import distributed
-    from recurrent_fusion_network_torch.parallel.mesh import make_mesh
+    from recurrent_fusion_network_torch.parallel.mesh import make_mesh, make_mesh_2d
     from recurrent_fusion_network_torch.training.train_loop import train
 
     with open(os.path.join(out_dir, "spec.json")) as f:
         spec = json.load(f)
-    c = distributed.initialize(backend="gloo", device=PAIR_DEVICE)
+    ports = os.environ[PAIR_PORTS].split(",")
+
+    def join(k, mp):
+        # a group's dp x mp layout is fixed when it is joined: each layout
+        # is a group of its own, on its own rendezvous port
+        distributed.shutdown()
+        os.environ["MASTER_PORT"] = ports[k]
+        return distributed.initialize(backend="gloo", device=PAIR_DEVICE, mp=mp)
+
+    c = join(0, 1)
     try:
         mesh, recorder = make_mesh(2), ShapeRecorder(aa)
         res, grads, switches = pair_runs(torch, spec, mesh, [aa], recorder, "dp_pair")
@@ -4805,6 +5075,15 @@ def dp_pair_rank(out_dir):
         if c.rank == 0:
             torch.save(grads, os.path.join(out_dir, "grads.pt"))
         del grads, switches
+        # the same pair laid out as dp 1 x mp 2, then as dp 2 again
+        join(1, 2)
+        res["mp"], grads = mp_pair_run(torch, spec, make_mesh_2d(1, 2), [aa], recorder,
+                                       out_dir, c.rank)
+        if c.rank == 0:
+            torch.save(grads, os.path.join(out_dir, "mp_grads.pt"))
+        del grads
+        join(2, 1)
+        mesh = make_mesh(2)
         opt = parse_opt(spec["data_argv"] + PAIR_PREEMPT_ARGS + [
             "--device", DEVICE, "--seed", "0", "--losses_log_every", "1",
             "--save_checkpoint_every", str(10 ** 6), "--checkpoint_path",
@@ -4901,14 +5180,16 @@ def dp_pair(torch, card, counters, recorder, root, data_argv):
         json.dump(spec, f)
     from recurrent_fusion_network_torch.parallel.distributed import free_port
 
-    port = str(free_port())
+    ports = set()
+    while len(ports) < 3:  # the pair's dp, dp 1 x mp 2 and dp groups
+        ports.add(str(free_port()))
     procs, lines = [], []
     t0 = time.perf_counter()
     try:
         for r in range(2):
-            env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=port, WORLD_SIZE="2",
-                       RANK=str(r), LOCAL_RANK=str(r), LOCAL_WORLD_SIZE="2",
-                       PYTHONUNBUFFERED="1")
+            env = dict(os.environ, MASTER_ADDR="127.0.0.1", WORLD_SIZE="2", RANK=str(r),
+                       LOCAL_RANK=str(r), LOCAL_WORLD_SIZE="2", PYTHONUNBUFFERED="1",
+                       **{PAIR_PORTS: ",".join(sorted(ports)), "MASTER_PORT": min(ports)})
             procs.append(subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--dp-pair-rank", pair_dir],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env))
@@ -4993,6 +5274,7 @@ def dp_pair(torch, card, counters, recorder, root, data_argv):
             f"{solo[stage]['peak_gb']:.2f}); launches per rank "
             f"{[tuple(res[stage]['launches']) for res in ranks]}, solo "
             f"{tuple(solo[stage]['launches'])} on {card}")
+    out["mp"] = mp_pair_check(torch, solo["xe"], solo_grads["xe"], ranks, pair_dir, card)
     del rank_grads, solo_grads
     fleet = solo["fleet"]
     for res in ranks:
@@ -5021,6 +5303,51 @@ def dp_pair(torch, card, counters, recorder, root, data_argv):
         f"{pre[0]['iter'] - 1} and exited 0, {stop_s:.2f} s after the signal; rank 0 wrote "
         f"{files}; launches per rank {[tuple(p['launches']) for p in pre]}")
     shutil.rmtree(pair_dir, ignore_errors=True)
+    return out
+
+
+def mp_pair_check(torch, solo, solo_grads, ranks, pair_dir, card):
+    """Phase 15 (b), the dp 1 x mp 2 run of the pair against one process's
+    XE run on the same batches (``pair_runs`` without a mesh): losses and
+    the first step's gathered grads within PAIR_TOL["xe"] on every leaf
+    (the forward up to the logit is one process's on each rank, so its
+    switches, the reason heads' amax picks and hinges, are the solo run's);
+    the final params and the first step's grads bit for bit on both ranks;
+    launches per rank MP_PAIR_LAUNCHES; rank 0's boundary triple the final
+    params bit for bit."""
+    tol = PAIR_TOL["xe"]
+    mp = [r["mp"] for r in ranks]
+    for res in mp:
+        a, b = res["loss_history"], solo["loss_history"]
+        if len(a) != len(b) or not all(abs(x - y) <= tol["atol"] + tol["rtol"] * abs(y)
+                                       for x, y in zip(a, b)):
+            raise AssertionError(f"mp pair xe: losses {a} vs one process's {b}")
+        if tuple(res["launches"]) != MP_PAIR_LAUNCHES:
+            raise AssertionError(f"mp pair xe: launches {res['launches']}, expected "
+                                 f"{MP_PAIR_LAUNCHES}")
+    if len({r["final_digest"] for r in mp}) != 1 or len({r["grads_digest"] for r in mp}) != 1:
+        raise AssertionError("mp pair xe: the ranks' final params or first-step grads differ "
+                             "(the replicated leaves must match bit for bit)")
+    if not mp[0].get("triple_equal"):
+        raise AssertionError("mp pair xe: rank 0's boundary triple is not the final params")
+    grads = torch.load(os.path.join(pair_dir, "mp_grads.pt"))
+    worst, bad, top = grads_apart(grads, solo_grads, lambda path: tol)
+    if bad or sorted(grads) != sorted(solo_grads):
+        raise AssertionError(f"mp pair xe: first-step grads beyond rtol {tol['rtol']} / atol "
+                             f"{tol['atol']} of one process's at {bad}: {top}")
+    out = dict(ranks=mp, grads_worst_share=worst, grads_worst_leaves=top, tol=tol)
+    log(f"mp pair xe f32 (gloo, dp 1 x mp 2 on cuda:0, 512 rows on each rank, logit "
+        f"{mp[0]['shard_shapes']['logit_w']} and embed {mp[0]['shard_shapes']['embed']} a "
+        f"rank): losses within rtol {tol['rtol']} / atol {tol['atol']} of one process's "
+        f"({mp[0]['loss_history']} vs {solo['loss_history']}); first-step grads gathered, "
+        f"{len(grads)} leaves, worst share {worst:.3f} ({top[:2]}); final params and grads "
+        f"bit for bit on both ranks; rank 0's triple = the final params bit for bit (read "
+        f"{mp[0]['triple_read_s']:.2f} s); step ms per rank "
+        f"{[round(r['step_median_ms'], 2) for r in mp]} (one process "
+        f"{solo['step_median_ms']:.2f}), of which the mp collectives "
+        f"{[round(r['mp_collective_median_ms'], 2) for r in mp]}; peak GB per process "
+        f"{[round(r['peak_gb'], 2) for r in mp]}; launches per rank "
+        f"{[tuple(r['launches']) for r in mp]} on {card}")
     return out
 
 
@@ -5077,6 +5404,266 @@ def phase15(torch, model, card, counters, recorder):
     log(f"dp: phase 15 in {out['seconds']:.2f} s; launches (fwd, bwd) by run "
         f"{out['launches']}")
     return out
+
+
+# ------------------------------------------------------- 16. the device meshes
+
+MESH_DEVICES = ("cuda:0", "cuda:0")  # the mesh's two blocks share the one card
+MESH_TIMED = 6  # B = 512 batches timed through pipelined_map, on the mesh and off
+MESH_SEEDS = (50, 51)  # the mesh ensemble's two flagship members
+DIFF_FEAT_SEED = 60  # member i of the diff-feat ensemble: seed 60 + i
+# phase 16's runs and their dtypes
+PHASE16_RUNS = {"mesh_serve": "bfloat16", "mesh_ensemble": "float32",
+                "diff_feat_ensemble": "float32"}
+
+
+def mesh_serving(torch, model, card, counters, recorder, solo_rate):
+    """Phase 16 (b): one B = 512 beam-3 bf16 batch of 512 requests through a
+    CaptionServer on the device mesh MESH_DEVICES (two blocks of 256 rows on
+    the one card): tokens identical to the one-device decode of the same
+    batch, launches 2 x 64; then the mesh's decode (both blocks queued, then
+    read) on B = 512 batches through pipelined_map, captions/s beside the
+    one-device decode's in the same way and phase 5's."""
+    import numpy as np
+
+    from recurrent_fusion_network_torch.decoding.api import model_sample
+    from recurrent_fusion_network_torch.decoding.serve import CaptionServer, pipelined_map
+    from recurrent_fusion_network_torch.parallel.mesh import (join_blocks, make_device_mesh,
+                                                              replicate, with_dp_sharding)
+    from recurrent_fusion_network_torch.training.checkpoint import cast_tree
+
+    t0 = time.perf_counter()
+    mesh = make_device_mesh(len(MESH_DEVICES), MESH_DEVICES)
+    params = cast_tree(model.init_params(torch.Generator(device=DEVICE).manual_seed(0),
+                                         device=DEVICE), torch.bfloat16)
+    replicas = replicate(mesh, params)
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    batches = [features(torch, model, BATCH, gen, torch.float32) for _ in range(2)]
+    fcs, atts = [x.cpu().numpy() for x in batches[0][0]], [x.cpu().numpy() for x in
+                                                           batches[0][1]]
+    rows = [([f[i] for f in fcs], [a[i] for a in atts]) for i in range(BATCH)]
+    batches = [[[x.to(torch.bfloat16) for x in part] for part in b] for b in batches]
+
+    def decode(p, f, a):
+        with torch.inference_mode():
+            return model_sample(model, p, f, a, beam_size=BEAM).seq
+
+    def decoder(p):
+        return lambda f, a: {"seq": decode(p, f, a)}
+
+    # depth 1: the batch is read back as soon as it is decoded (a deeper
+    # window waits flush_interval for the next request first); the batch
+    # waits for all its 512 requests (the submits take about a second)
+    server = CaptionServer([decoder(p) for p in replicas], BATCH, mesh=mesh, depth=1,
+                           flush_interval=60.0, cast_dtype=torch.bfloat16)
+    try:
+        want = decode(params, *batches[0]).cpu().numpy()
+        torch.cuda.synchronize()
+        reset_counters(counters)
+        t1 = time.perf_counter()
+        with recorder.run("mesh_serve"):
+            futs = [server.submit(f, a) for f, a in rows]
+            got = np.stack([fut.result(timeout=600)["seq"] for fut in futs])
+        server_s = time.perf_counter() - t1
+        torch.cuda.synchronize()
+        launches = read_counters(counters, "mesh serve")
+        stats = dict(server.stats)
+    finally:
+        server.close()
+    apart = int((got != want).any(axis=1).sum())
+    if apart or launches != (2 * 64, 0) or recorder.totals("mesh_serve") != launches \
+            or stats["batches"] != 1:
+        raise AssertionError(f"mesh serve: {apart} of {BATCH} rows' tokens differ from the "
+                             f"one-device decode's, or launches {launches} (2 x 64), stats "
+                             f"{stats}")
+
+    def mesh_decode(batch):
+        return [decode(p, *block) for p, block in zip(replicas, with_dp_sharding(mesh, batch))]
+
+    rates = {}
+    for name, fn, read in (("mesh", mesh_decode, lambda out: join_blocks(out)),
+                           ("one_device", lambda b: decode(params, *b), lambda out: out.cpu())):
+        read(fn(batches[1]))  # warm
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        n = 0
+        for _, out in pipelined_map(fn, (batches[i % 2] for i in range(MESH_TIMED)), depth=2):
+            n += read(out).shape[0]
+        rates[name] = n / (time.perf_counter() - t1)
+    out = dict(rows_apart=apart, launches=launches, server_batch_s=server_s, stats=stats,
+               mesh_captions_per_s=rates["mesh"], one_device_captions_per_s=rates["one_device"],
+               solo_pipelined_captions_per_s=solo_rate, seconds=time.perf_counter() - t0)
+    log(f"mesh serve: CaptionServer B={BATCH} beam 3 bf16 on the mesh {list(MESH_DEVICES)} "
+        f"(two blocks of {BATCH // 2} rows): the 512 requests' tokens identical to the "
+        f"one-device decode of the same batch; launches {launches} (2 x 64); the batch "
+        f"{server_s:.2f} s from the first submit to the last row; stats {stats}. "
+        f"{rates['mesh']:.1f} captions/s on the mesh, {rates['one_device']:.1f} on one device "
+        f"({MESH_TIMED} B={BATCH} batches each through pipelined_map depth 2), phase 5's "
+        f"{solo_rate:.1f}: no speed-up is possible, both blocks share one card; "
+        f"{out['seconds']:.2f} s on {card}")
+    del params, replicas, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_loader(model, root):
+    """(opt, loader) of phase 8's data set at the eval CLI's shapes: the
+    100 test images in one batch of 100 x 5, beam 3, f32."""
+    from recurrent_fusion_network_torch.config import parse_opt
+    from recurrent_fusion_network_torch.data.build import build_loader
+
+    data_argv, _, _ = driver_data(model)
+    opt = parse_opt(data_argv + [
+        "--device", DEVICE, "--batch_size", "100", "--seq_per_img", "5", "--beam_size", "3",
+        "--val_images_use", "100", "--language_eval", "1", "--id", "mesh",
+        "--eval_results_dir", os.path.join(root, "eval_results")])
+    loader = build_loader(opt)
+    opt.vocab_size, opt.seq_length = loader.vocab_size, loader.seq_length
+    return opt, loader
+
+
+def mesh_ensemble(torch, model, card, counters, recorder, root):
+    """Phase 16 (c): eval_ensemble of two flagship f32 members (seeds
+    MESH_SEEDS) on phase 8's 100 test images, beam 3, on the mesh
+    MESH_DEVICES (two blocks of 50 images) against no mesh: predictions
+    identical; launches 2 blocks x 2 members x 64."""
+    from recurrent_fusion_network_torch.parallel.mesh import make_device_mesh
+    from recurrent_fusion_network_torch.training.eval_ensemble import eval_ensemble
+
+    members = [(model, model.init_params(torch.Generator(device=DEVICE).manual_seed(s),
+                                         device=DEVICE)) for s in MESH_SEEDS]
+    mesh = make_device_mesh(len(MESH_DEVICES), MESH_DEVICES)
+    runs = {}
+    for name in ("plain", "mesh"):
+        opt, loader = mesh_loader(model, root)
+        try:
+            torch.cuda.synchronize()
+            reset_counters(counters)
+            t0 = time.perf_counter()
+            with recorder.run("mesh_ensemble") if name == "mesh" else contextlib.nullcontext():
+                preds, _ = eval_ensemble(members, loader, opt, split="test",
+                                         language_eval_flag=False,
+                                         mesh=mesh if name == "mesh" else None)
+            torch.cuda.synchronize()
+            runs[name] = dict(preds=preds, s=time.perf_counter() - t0,
+                              launches=read_counters(counters, f"mesh ensemble {name}"))
+        finally:
+            loader.close()
+    expect = (2 * len(MESH_SEEDS) * 64, 0)
+    if runs["mesh"]["preds"] != runs["plain"]["preds"] or len(runs["mesh"]["preds"]) != 100 \
+            or runs["mesh"]["launches"] != expect or recorder.totals("mesh_ensemble") != expect:
+        raise AssertionError(f"mesh ensemble: predictions differ from no mesh's, or launches "
+                             f"{runs['mesh']['launches']} != {expect}")
+    log(f"mesh ensemble: 2 flagship f32 members, beam 3, phase 8's 100 test images on the "
+        f"mesh {list(MESH_DEVICES)} (two blocks of 50): predictions identical to no mesh's; "
+        f"launches {runs['mesh']['launches']} (no mesh {runs['plain']['launches']}); eval "
+        f"{runs['mesh']['s']:.2f} s on the mesh, {runs['plain']['s']:.2f} s without, on {card}")
+    del members
+    torch.cuda.empty_cache()
+    return {k: dict(s=r["s"], launches=r["launches"]) for k, r in runs.items()}
+
+
+def diff_feat_members(torch, model):
+    """One ReviewNet per flagship encoder at the published widths (the
+    encoder's fc / att widths and regions, E = R = H = 512, 8 review steps,
+    1000 top words, tied keys, vocab 9487), random weights from seed
+    DIFF_FEAT_SEED + i."""
+    from recurrent_fusion_network_torch.models import ReviewNetModel
+
+    out = []
+    for i, (fc, att, num) in enumerate(zip(model.fc_feat_sizes, model.att_feat_sizes,
+                                           model.att_nums)):
+        m = ReviewNetModel(vocab_size=model.vocab_size, seq_length=model.seq_length,
+                           input_encoding_size=HID, rnn_size=HID, att_hid_size=HID,
+                           fc_feat_size=fc, att_feat_size=att, att_num=num,
+                           num_review_steps=8, top_words_count=1000, tied_att_keys=True)
+        out.append((m, m.init_params(torch.Generator(device=DEVICE).manual_seed(
+            DIFF_FEAT_SEED + i), device=DEVICE)))
+    return out
+
+
+def diff_feat_ensemble(torch, aa, model, card, counters, recorder, root):
+    """Phase 16 (d): the diff-feat ensemble (member i reads encoder i's
+    features) of five ReviewNets at published widths through
+    eval_ensemble(diff_feat=True) on phase 8's 100 test images, one batch,
+    beam 3, f32: predictions with the kernels equal those with the plain
+    versions, the forward's launches 5 x 24, the 8 metrics finite."""
+    from unittest import mock
+
+    from recurrent_fusion_network_torch.ops import attention
+    from recurrent_fusion_network_torch.training.eval_ensemble import eval_ensemble
+
+    members = diff_feat_members(torch, model)
+    per_batch = sum(model_launches(m)[0] for m, _ in members)
+    runs = {}
+    for name in ("kernel", "plain"):
+        opt, loader = mesh_loader(model, root)
+        try:
+            torch.cuda.synchronize()
+            reset_counters(counters)
+            t0 = time.perf_counter()
+            with (recorder.run("diff_feat_ensemble") if name == "kernel" else
+                  mock.patch.object(attention, "additive_attention",
+                                    aa.additive_attention_ref)):
+                preds, stats = eval_ensemble(members, loader, opt, split="test",
+                                             diff_feat=True,
+                                             language_eval_flag=name == "kernel")
+            torch.cuda.synchronize()
+            runs[name] = dict(preds=preds, stats=stats, s=time.perf_counter() - t0,
+                              launches=read_counters(counters, f"diff feat {name}"))
+        finally:
+            loader.close()
+    k = runs["kernel"]
+    if k["preds"] != runs["plain"]["preds"] or len(k["preds"]) != 100 \
+            or k["launches"] != (per_batch, 0) \
+            or recorder.totals("diff_feat_ensemble") != (per_batch, 0) \
+            or runs["plain"]["launches"] != (0, 0):
+        raise AssertionError(f"diff feat ensemble: predictions differ between the kernels and "
+                             f"the plain versions, or launches {k['launches']} / "
+                             f"{runs['plain']['launches']} != ({per_batch}, 0) / (0, 0)")
+    stats = check_stats(k["stats"], "diff feat ensemble")
+    log(f"diff feat ensemble: 5 ReviewNets (one per flagship encoder, published widths), "
+        f"beam 3, f32, phase 8's 100 test images: predictions with the kernels equal those "
+        f"with the plain versions; launches {k['launches']} ({per_batch} a batch); metrics "
+        f"{stats}; eval {k['s']:.2f} s (plain versions {runs['plain']['s']:.2f} s) on {card}")
+    del members
+    torch.cuda.empty_cache()
+    return dict(launches=k["launches"], stats=stats, s=k["s"], plain_s=runs["plain"]["s"])
+
+
+def phase16(torch, aa, model, card, counters, solo_rate):
+    """Phase 16: the device meshes on one card. (b) the serving mesh, (c)
+    the ensemble over it, (d) the diff-feat ensemble; ((a), the dp 1 x mp
+    2 pair, runs inside phase 15's pair processes). Every launch's shape is
+    then checked against the plain versions. -> (results, forward rows)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    recorder, parts = ShapeRecorder(aa), {}
+    out = {"serve": mesh_serving(torch, model, card, counters, recorder, solo_rate)}
+    parts["serve"] = time.perf_counter() - t0
+    root = tempfile.mkdtemp(prefix="mesh_", dir=os.path.join(REPO, "build"))
+    try:
+        t1 = time.perf_counter()
+        out["ensemble"] = mesh_ensemble(torch, model, card, counters, recorder, root)
+        parts["ensemble"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        out["diff_feat"] = diff_feat_ensemble(torch, aa, model, card, counters, recorder, root)
+        parts["diff_feat"] = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    t1 = time.perf_counter()
+    rows, bwd_rows = check_driver_sites(torch, aa, recorder,
+                                        {"mesh": tuple(PHASE16_RUNS)})
+    parts["shape_checks"] = time.perf_counter() - t1
+    if bwd_rows:
+        raise AssertionError("phase 16: a backward launch on an inference path")
+    out["launches"] = {run: recorder.totals(run) for run in PHASE16_RUNS}
+    out["seconds"], out["parts_s"] = time.perf_counter() - t0, parts
+    log(f"meshes: phase 16 in {out['seconds']:.2f} s (by part "
+        f"{ {k: round(v, 2) for k, v in parts.items()} }): {len(recorder.fwd)} forward shapes "
+        f"checked against the plain versions; launches (fwd, bwd) by run {out['launches']}")
+    return out, rows
 
 
 def path_sums(site_rows, path):
@@ -5278,6 +5865,17 @@ def main():
     p15_bwd = sum(b for _, b in p15_launches.values())
     torch.cuda.empty_cache()
 
+    # ---- 16. the device meshes: the serving mesh, the ensemble over it, the
+    # diff-feat ensemble
+    p16, p16_rows = phase16(torch, aa, model, card, [aa], solo_rate)
+    p16_launches = p16.pop("launches")
+    p16_fwd = sum(f for f, _ in p16_launches.values())
+    p16_sums = {run: dict(path_sums(p16_rows, run), dtype=PHASE16_RUNS[run])
+                for run in p16_launches}
+    if any(p16_sums[r]["launches"] != f for r, (f, _) in p16_launches.items()):
+        raise AssertionError("phase 16: the checked sites do not add up to its launches")
+    torch.cuda.empty_cache()
+
     # both kernels against their plain versions at every shape of phases 8,
     # 10, 11 and 15's runs
     t0 = time.perf_counter()
@@ -5350,7 +5948,7 @@ def main():
         if (remat_fwd[p]["launches"] * steps, remat_bwd[p]["launches"] * steps) \
                 != p11_launches[p]:
             raise AssertionError(f"{p}: the train sites do not add up to phase 11's launches")
-    rows = rows + scst_rows + drv_rows + rn_rows + raw_rows + p13_rows + p14_rows
+    rows = rows + scst_rows + drv_rows + rn_rows + raw_rows + p13_rows + p14_rows + p16_rows
     bwd_rows = bwd_rows + scst_bwd_rows + drv_bwd_rows + rn_bwd_rows + p13_bwd_rows \
         + p14_bwd_rows
     kernels = [{
@@ -5361,7 +5959,7 @@ def main():
         "launches": launches["additive_attention"]
         + trained["launches"]["additive_attention_fwd"]
         + scst_launches["additive_attention_fwd"] + driver_fwd + sum(model_fwd.values())
-        + fleet_fwd + p11_fwd + p12_fwd + p13_fwd + p14_fwd + p15_fwd,
+        + fleet_fwd + p11_fwd + p12_fwd + p13_fwd + p14_fwd + p15_fwd + p16_fwd,
         # "eval": the eval CLI's run (one batch of 100 test images);
         # "drivers": all of phase 8's CLI runs, their eval batches included;
         # "<model>_<path>": phase 9's HTTP serving, XE and SCST runs;
@@ -5378,7 +5976,8 @@ def main():
                              **p12_launches,
                              **{run: f for run, (f, _) in p13_launches.items()},
                              **{run: f for run, (f, _) in p14_launches.items()},
-                             **{run: f for run, (f, _) in p15_launches.items()}},
+                             **{run: f for run, (f, _) in p15_launches.items()},
+                             **{run: f for run, (f, _) in p16_launches.items()}},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         # per beam-3 bf16 batch at B = 512: the sum over its 64 launches
         "ms": serve["ms"],
@@ -5397,12 +5996,12 @@ def main():
         # SCST runs on the sharded stores; phase 12: per f32 beam-3 batch of
         # 16 images of ReviewNet on the resnet grid (24 launches), in eval
         # --image_folder and /caption_image alike; phase 13: over each whole
-        # run (the two front ends' 256 requests, one greedy-baseline reward,
+        # run (the two front ends' 64 requests, one greedy-baseline reward,
         # each stage of the runbook's dry run)
         "by_path": {"serve": serve, "train": train_fwd, "scst": scst_fwd, "eval": eval_fwd,
                     "drivers": drivers_fwd, **rn_fwd, **fleet_fwd_sums, **remat_fwd,
                     **front_fwd, "raw_image_batch": raw_batch, **p13_fwd_sums,
-                    **p14_fwd_sums, **p15_fwd_sums},
+                    **p14_fwd_sums, **p15_fwd_sums, **p16_sums},
         "ok": all(r["ok"] and r["bitwise_repeat"] for r in rows),
         "sites": rows,
     }, {
@@ -5452,6 +6051,7 @@ def main():
     log("phase 13 summary: " + json.dumps(p13))
     log("phase 14 summary: " + json.dumps(p14))
     log("phase 15 summary: " + json.dumps(p15))
+    log("phase 16 summary: " + json.dumps(p16))
     for k in kernels:
         for path, sums in k["by_path"].items():
             log(f"kernel {k['name']} per {sums['dtype']} {path} path ({sums['launches']} "
@@ -5468,6 +6068,8 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--launch-probe"]:
         launch_probe(sys.argv[2], sys.argv[3:])
+    elif sys.argv[1:2] == ["--probe-server"]:
+        sys.exit(probe_server(sys.argv[2], sys.argv[3]))
     elif sys.argv[1:2] == ["--dp-pair-rank"]:
         dp_pair_rank(sys.argv[2])
     else:

@@ -9,9 +9,8 @@ the checkpoint's saved opt for the architecture). ``parse_opt`` parses the
 training and eval CLIs (``main``, ``main_rl``, ``eval``); the serve CLI keeps
 its own, smaller parser (``parse_serve_opt``).
 
-Flags of features the port does not have yet raise ``NotImplementedError``
-with their ROADMAP entry (``check_ported``). ``dp_devices`` maps
---num_dp_devices and --async_opt to the training CLIs' data-parallel ranks.
+``dp_devices`` maps --num_dp_devices, --num_mp_devices and --async_opt to
+the training CLIs' ranks (dp x mp of them).
 """
 
 from __future__ import annotations
@@ -185,6 +184,9 @@ def _driver_defaults() -> dict:
         eval_results_dir="eval_results",  # per-image metric JSONs of eval_split
         data_root="data/features",
         num_dp_devices=1,
+        # the 'mp' axis of solo XE training: the vocabulary-wide logit and
+        # embedding split over mp ranks of a dp x mp mesh (parallel/mesh.py
+        # shard_params_2d); optional at 512-dim scale, >1 builds the mesh
         num_mp_devices=1,
         n_seeds=1,
         checkpoint_backend="pickle",  # 'pickle' (the reference's triple files) |
@@ -199,7 +201,9 @@ def _driver_defaults() -> dict:
 
 def _serve_defaults() -> dict:
     """The serve CLI's own flags beside ``parse_opt``'s (the JAX serve
-    CLI's pre-parser, ``serve.py:24-53``): --port is the HTTP front end's."""
+    CLI's pre-parser, ``serve.py:24-53``): --port is the HTTP front end's;
+    --serve_dp_devices N splits each decode batch over a mesh of the first
+    N cards (--serve_batch_size must divide by N)."""
     return dict(port=8080, serve_frontend="asyncio", serve_dp_devices=1)
 
 
@@ -302,30 +306,15 @@ def validate_options(opt) -> None:
     assert opt.train_only in (0, 1), "train_only should be 0 or 1"
 
 
-# flag -> (is it set?, what is missing, ROADMAP entry)
-_UNPORTED = (
-    ("num_mp_devices", lambda v: v > 1, "the dp x mp mesh", "M10b"),
-    ("serve_dp_devices", lambda v: v > 1, "the serving dp mesh", "M10b"),
-)
-
-
-def check_ported(opt) -> None:
-    """Raise NotImplementedError for a flag whose feature is not ported."""
-    for key, is_set, what, entry in _UNPORTED:
-        value = getattr(opt, key, None)
-        if value is not None and is_set(value):
-            raise NotImplementedError(
-                f"--{key} {value}: {what} is not ported yet (ROADMAP.md queue 1, {entry})")
-
-
 def dp_devices(opt) -> int:
-    """The data-parallel ranks the training CLIs run (JAX main.py:38-46),
-    recorded in ``opt.num_dp_devices``: --async_opt 1 (the reference's
-    Hogwild processes) with --num_dp_devices <= 1 maps to synchronous data
-    parallelism over min(--num_processes, the visible cards) on CUDA and
-    over --num_processes gloo ranks on the CPU. On CUDA more ranks than
-    visible cards raise, as the JAX package's make_mesh asserts. The eval,
-    ensemble and serve CLIs read neither flag, as in the JAX package."""
+    """The ranks the training CLIs run (JAX main.py:38-57): --num_dp_devices
+    x --num_mp_devices, the dp count recorded in ``opt.num_dp_devices``.
+    --async_opt 1 (the reference's Hogwild processes) with --num_dp_devices
+    <= 1 maps to synchronous data parallelism over min(--num_processes, the
+    visible cards) on CUDA and over --num_processes gloo ranks on the CPU.
+    On CUDA more ranks than visible cards raise, as the JAX package's
+    make_mesh / make_mesh_2d assert. The eval, ensemble and serve CLIs read
+    none of these flags, as in the JAX package."""
     import torch
 
     cuda = opt.device != "cpu"
@@ -335,10 +324,13 @@ def dp_devices(opt) -> int:
         print(f"--async_opt 1 -> synchronous DP over {opt.num_dp_devices} device(s)")
     if opt.num_dp_devices < 1:
         raise ValueError(f"--num_dp_devices {opt.num_dp_devices} should be at least 1")
-    if cuda and opt.num_dp_devices > cards:
-        raise ValueError(f"--num_dp_devices {opt.num_dp_devices}: need {opt.num_dp_devices} "
-                         f"CUDA devices, have {cards}")
-    return opt.num_dp_devices
+    if opt.num_mp_devices < 1:
+        raise ValueError(f"--num_mp_devices {opt.num_mp_devices} should be at least 1")
+    world = opt.num_dp_devices * opt.num_mp_devices
+    if cuda and world > cards:
+        raise ValueError(f"--num_dp_devices {opt.num_dp_devices} x --num_mp_devices "
+                         f"{opt.num_mp_devices}: need {world} CUDA devices, have {cards}")
+    return world
 
 
 def _wire_features(opt) -> None:
@@ -377,7 +369,6 @@ def _wire_features(opt) -> None:
 
 def finalize_options(opt) -> None:
     validate_options(opt)
-    check_ported(opt)
     _wire_features(opt)
     if not hasattr(opt, "feat_array_info"):
         opt.feat_array_info = []

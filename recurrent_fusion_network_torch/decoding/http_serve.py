@@ -32,6 +32,7 @@ import torch
 from ..data.vocab import decode_sequence
 from ..device import resolve_device
 from ..ops.initializers import tree_leaves, tree_map
+from ..parallel.mesh import replicate
 from .api import model_sample
 from .serve import CaptionServer
 
@@ -110,12 +111,16 @@ class CaptionService:
     floating dtype is the compute dtype, and requests are cast to it at
     submit. backbone: None or (backbone params on ``device``, features_fn,
     image_size) from ``data/feature_extraction/backbones.build_backbone``.
+    mesh: a ``parallel/mesh.py::DeviceMesh`` (JAX http_serve.py:121,
+    150-166): the params go to every device of it once, each batch's rows
+    are decoded block by block over them (``CaptionServer``), and
+    ``device`` is the mesh's first (the backbone's).
     """
 
     def __init__(self, model, params, vocab, *, device=None, batch_size: int = 16,
                  beam_size: int = 3, depth: int = 2, flush_interval: float = 0.005,
-                 backbone=None):
-        self.device = resolve_device(device)
+                 backbone=None, mesh=None):
+        self.device = mesh.devices[0] if mesh is not None else resolve_device(device)
         self.vocab = vocab
         self.model = model
         self.beam_size = beam_size
@@ -130,14 +135,20 @@ class CaptionService:
                 f"serve a show_tell/review_net checkpoint)"
             )
         self.backbone = backbone
-        params = tree_map(lambda x: x.to(self.device), params)
+        self.mesh = mesh
 
-        def decode(fcs, atts):
-            with torch.inference_mode():
-                out = model_sample(model, params, fcs, atts, beam_size=beam_size)
-            return {"seq": out.seq, "seq_logprobs": out.seq_logprobs}
+        def decoder(params):
+            def decode(fcs, atts):
+                with torch.inference_mode():
+                    out = model_sample(model, params, fcs, atts, beam_size=beam_size)
+                return {"seq": out.seq, "seq_logprobs": out.seq_logprobs}
 
-        self._decode = decode
+            return decode
+
+        if mesh is None:
+            self._decode = decoder(tree_map(lambda x: x.to(self.device), params))
+        else:  # one replica and one decode a device
+            self._decode = [decoder(p) for p in replicate(mesh, params)]
         cast_dtype = next((x.dtype for x in tree_leaves(params)
                            if x.is_floating_point()), None)
         self.single = not hasattr(model, "fc_feat_sizes")
@@ -147,8 +158,9 @@ class CaptionService:
         else:
             feat_dims = (tuple(model.fc_feat_sizes), tuple(model.att_feat_sizes))
         self.server = CaptionServer(
-            decode, batch_size, device=self.device, depth=depth,
-            flush_interval=flush_interval, feat_dims=feat_dims, cast_dtype=cast_dtype)
+            self._decode, batch_size, device=self.device, depth=depth,
+            flush_interval=flush_interval, feat_dims=feat_dims, cast_dtype=cast_dtype,
+            mesh=mesh)
 
     # ------------------------------------------------------------------ API
 
@@ -182,12 +194,21 @@ class CaptionService:
     def warmup(self) -> None:
         """Run one full-size zero batch before serving traffic: builds the
         kernel library and warms the allocator, so the first live request
-        does not pay for them."""
+        does not pay for them. On a mesh every device decodes its block of
+        it, as a served batch is decoded (JAX :279-285)."""
         fc_dims, att_shapes = feature_shapes(self.model)
-        B, dt = self.batch_size, self.server.cast_dtype
-        fcs = [torch.zeros((B, d), dtype=dt, device=self.device) for d in fc_dims]
-        atts = [torch.zeros((B, n, d), dtype=dt, device=self.device) for n, d in att_shapes]
-        tree_map(lambda x: x.cpu(), self._decode(fcs, atts))  # readback: done
+        dt = self.server.cast_dtype
+        if self.mesh is None:
+            work = [(self._decode, self.batch_size, self.device)]
+        else:
+            rows = self.batch_size // self.mesh.dp
+            work = [(fn, rows, d) for fn, d in zip(self._decode, self.mesh.devices)]
+        outs = []
+        for decode, B, dev in work:
+            fcs = [torch.zeros((B, d), dtype=dt, device=dev) for d in fc_dims]
+            atts = [torch.zeros((B, n, d), dtype=dt, device=dev) for n, d in att_shapes]
+            outs.append(decode(fcs, atts))
+        tree_map(lambda x: x.cpu(), outs)  # readback: done
 
     def close(self):
         self.server.close()

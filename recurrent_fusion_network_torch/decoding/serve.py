@@ -5,7 +5,9 @@ queues CUDA work asynchronously: a decode that never reads a tensor value
 on the host returns as soon as its kernels are queued, and only the
 readback blocks. Keeping a small window of batches in flight therefore
 overlaps the host's dispatch of the next batch with the device's compute
-of the current one.
+of the current one. A ``CaptionServer`` on a device mesh
+(``parallel/mesh.py::DeviceMesh``) splits each batch's rows into one block
+a device and queues every block's decode before any readback.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.initializers import tree_map
+from ..parallel.mesh import join_blocks, with_dp_sharding
 
 
 def _safe_result(fut: Future, value) -> None:
@@ -84,17 +87,34 @@ class CaptionServer:
     decode_fn: (fcs, atts) -> tree of device tensors whose leaves lead with
     the batch axis; fcs / atts are lists of per-encoder (B, D) and (B, A, D)
     tensors on ``device``.
+
+    With a ``mesh`` (JAX serve.py:84-168) each batch is padded on the host
+    to ``batch_size`` rows (no device padding), split into the mesh's dp
+    blocks, block k decoded on ``mesh.devices[k]`` by ``decode_fn[k]``
+    (``decode_fn`` is then a list of callables, one a device), every block
+    queued before any readback, and the blocks' rows concatenated in order.
+    ``batch_size`` must divide by the mesh's dp.
     """
 
-    def __init__(self, decode_fn: Callable, batch_size: int, *, device=None,
+    def __init__(self, decode_fn, batch_size: int, *, device=None,
                  depth: int = 2, flush_interval: float = 0.005, feat_dims=None,
-                 cast_dtype=None):
+                 cast_dtype=None, mesh=None):
         if depth < 1:
             raise ValueError("depth must be >= 1")
         if batch_size < 1:
             raise ValueError("batch_size must be >= 1")
-        self.device = resolve_device(device)
+        if mesh is not None and batch_size % mesh.dp:
+            raise ValueError(f"batch_size {batch_size} must divide by the mesh dp "
+                             f"extent {mesh.dp}")
+        self.mesh = mesh
+        self.device = mesh.devices[0] if mesh is not None else resolve_device(device)
+        if mesh is not None and (callable(decode_fn) or len(decode_fn) != mesh.dp):
+            raise ValueError(f"on a mesh of {mesh.dp} devices decode_fn is a list of "
+                             f"{mesh.dp} callables, one a device")
         self.decode_fn = decode_fn
+        # the real rows of a partial batch are uploaded and zero-filled on
+        # the device, except on a mesh, whose blocks are cut from full rows
+        self.device_pad = mesh is None
         self.batch_size = batch_size
         self.depth = depth
         self.flush_interval = flush_interval
@@ -260,16 +280,23 @@ class CaptionServer:
             # smallest power-of-2 bucket holding the real rows: the host
             # stacks and uploads `bucket` rows, the device zero-fills the
             # rest (their outputs are discarded by _resolve)
-            bucket = min(self.batch_size, 1 << (n - 1).bit_length())
+            bucket = (min(self.batch_size, 1 << (n - 1).bit_length()) if self.device_pad
+                      else self.batch_size)
             rows_fc = [g[0] for g in group] + [group[-1][0]] * (bucket - n)
             rows_att = [g[1] for g in group] + [group[-1][1]] * (bucket - n)
             n_enc = len(rows_fc[0])
-            fcs = [self._upload([r[e] for r in rows_fc]) for e in range(n_enc)]
-            atts = [self._upload([r[e] for r in rows_att]) for e in range(n_enc)]
             self.stats["h2d_rows"] += bucket
-            if bucket < self.batch_size:
-                fcs, atts = self._pad_on_device(fcs), self._pad_on_device(atts)
-            out = self.decode_fn(fcs, atts)
+            if self.mesh is not None:
+                fcs = [torch.stack([r[e] for r in rows_fc]) for e in range(n_enc)]
+                atts = [torch.stack([r[e] for r in rows_att]) for e in range(n_enc)]
+                out = [fn(*block) for fn, block in
+                       zip(self.decode_fn, with_dp_sharding(self.mesh, (fcs, atts)))]
+            else:
+                fcs = [self._upload([r[e] for r in rows_fc]) for e in range(n_enc)]
+                atts = [self._upload([r[e] for r in rows_att]) for e in range(n_enc)]
+                if bucket < self.batch_size:
+                    fcs, atts = self._pad_on_device(fcs), self._pad_on_device(atts)
+                out = self.decode_fn(fcs, atts)
         except Exception as e:  # malformed request / dispatch error:
             for f in futures:  # fail this batch only, keep the worker alive
                 _safe_exception(f, e)
@@ -302,6 +329,8 @@ class CaptionServer:
         if not futures:
             return
         try:
+            if self.mesh is not None:  # the blocks' rows, in order
+                out = join_blocks(out)
             host = tree_map(lambda x: x.cpu().numpy(), out)  # the one sync
         except Exception as e:  # device-side execution error
             for f in futures:

@@ -26,7 +26,11 @@ ranks share out the fleet's seeds instead. Under a launcher's environment
 (``python -m torch.distributed.run --nproc_per_node D -m
 recurrent_fusion_network_torch.main --num_dp_devices D ...``, one or
 several hosts) each process is one rank, and D must be the launcher's
-world size. ``--num_mp_devices`` (the dp x mp mesh) is not ported.
+world size. ``--num_mp_devices M`` (solo XE only, as in the JAX CLI)
+lays the D x M ranks out as a dp x mp mesh (``parallel/mesh.py``): the
+vocabulary-wide logit and embedding split over the M ranks of each dp
+index, the batch over the D dp indices; D x M must then be the launcher's
+world size.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ from .config import dp_devices, parse_opt
 from .data.build import build_loader
 from .device import resolve_device
 from .parallel import distributed
-from .parallel.mesh import make_mesh
+from .parallel.mesh import MP_FLEET, make_mesh, make_mesh_2d
 from .training.multi_seed import train_multi_seed
 from .training.train_loop import train
 
@@ -53,10 +57,12 @@ def spawn_ranks(opt, n: int, entry, argv) -> None:
 
 
 def join_group(opt, world: int):
-    """This launched process as one rank of ``world``: -> its mesh, on
-    ``opt.device`` (NCCL on CUDA, gloo on the CPU)."""
-    distributed.initialize(device=opt.device)
-    return make_mesh(world)
+    """This launched process as one rank of ``world``: -> its mesh, dp x mp
+    under --num_mp_devices > 1, on ``opt.device`` (NCCL on CUDA, gloo on
+    the CPU)."""
+    mp = opt.num_mp_devices
+    distributed.initialize(device=opt.device, mp=mp)
+    return make_mesh_2d(world // mp, mp) if mp > 1 else make_mesh(world)
 
 
 def main(argv=None):
@@ -65,6 +71,8 @@ def main(argv=None):
     started the data-parallel ranks."""
     argv = sys.argv[1:] if argv is None else list(argv)
     opt = parse_opt(argv)
+    if opt.num_mp_devices > 1 and opt.n_seeds > 1:  # JAX main.py:53-56
+        raise ValueError(MP_FLEET)
     resolve_device(opt.device)  # no CUDA and no --device cpu: raise first
     world = dp_devices(opt)
     if world > 1 and not distributed.launched():

@@ -16,6 +16,8 @@ unless ``--device cpu``:
 warm-started from rank r's XE best triple. ``--num_dp_devices D`` /
 ``--async_opt 1`` and a launcher's environment start data-parallel ranks as
 in ``main.py``: each rank rolls out and scores its block of every batch.
+``--num_mp_devices`` above 1 is refused before the loader is built, as the
+JAX CLI refuses it (the dp x mp mesh is a solo XE capability).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from .data.prepro_ngrams import compute_doc_freq
 from .device import resolve_device
 from .main import join_group, spawn_ranks
 from .parallel import distributed
+from .parallel.mesh import MP_RL
 from .rewards.cider_d import CiderD
 from .training.multi_seed import train_multi_seed_rl
 from .training.train_rl_loop import train_rl
@@ -62,6 +65,8 @@ def main(argv=None):
     started the data-parallel ranks."""
     argv = sys.argv[1:] if argv is None else list(argv)
     pre_args, opt = parse_args(argv)
+    if opt.num_mp_devices > 1:  # before the loader and the df fallback (JAX :26-29)
+        raise ValueError(MP_RL)
     resolve_device(opt.device)  # no CUDA and no --device cpu: raise first
     world = dp_devices(opt)
     if world > 1 and not distributed.launched():

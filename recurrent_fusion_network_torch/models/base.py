@@ -12,6 +12,7 @@ one (``single_encoder``), as the port's drivers hand every model lists.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Any, List, NamedTuple
 
 import torch
@@ -67,8 +68,30 @@ def single_encoder(feats):
     return feats
 
 
-def embed_tokens(params, tokens):
-    return params["embed"][tokens]
+def embed_tokens(params, tokens, vocab_parallel=None):
+    """Token embeddings. With ``vocab_parallel`` (an mp rank's
+    ``parallel/mesh.py::VocabParallel``) ``params["embed"]`` holds the
+    rank's rows of the table, and the rows are gathered over the mp
+    ranks."""
+    if vocab_parallel is None:
+        return params["embed"][tokens]
+    return vocab_parallel.embed(params["embed"], tokens)
+
+
+def vocab_logits(logits_fn, h, vocab_parallel=None):
+    """``logits_fn(h)``, the logits over the vocabulary. With
+    ``vocab_parallel`` the logit params hold the mp rank's columns, and
+    the columns are gathered over the mp ranks."""
+    if vocab_parallel is None:
+        return logits_fn(h)
+    return vocab_parallel.logits(logits_fn, h)
+
+
+def vocab_parallel_field():
+    """The models' ``vocab_parallel`` field: None, or the mp rank's share
+    of the vocabulary under a dp x mp mesh (``training/train_loop.py``
+    sets it on the model of the train step)."""
+    return dataclasses.field(default=None, compare=False, repr=False)
 
 
 def tile_for_lanes(tree, n_lanes: int):

@@ -33,7 +33,7 @@ from ..device import resolve_device
 from ..ops import attention, cells
 from ..ops.initializers import apply_linear, index_params, linear, stack_params
 from .base import (EncodeOut, embed_tokens, init_embed_logit, resolve_tied, review_step,
-                   xe_decode)
+                   vocab_logits, vocab_parallel_field, xe_decode)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +61,7 @@ class RecurrentFusionModel:
     remat_policy: str = "save_ctx"
     tied_att_keys: bool = False
     low_rank_ctx: bool = False
+    vocab_parallel: object = vocab_parallel_field()
 
     @property
     def num_feat_array(self) -> int:
@@ -159,7 +160,7 @@ class RecurrentFusionModel:
     # ------------------------------------------------------------- public API
 
     def embed(self, params, tokens):
-        return embed_tokens(params, tokens)
+        return embed_tokens(params, tokens, self.vocab_parallel)
 
     def encode(self, params, fc_feats, att_feats, *, generator=None, training=False):
         """fc_feats / att_feats: sequences of M tensors, (B, D_j) and
@@ -258,7 +259,8 @@ class RecurrentFusionModel:
             params["decoder"], xt, memory["thoughts"], state, keys=memory["keys"],
             rnn_size=self.rnn_size, maxout=self.decoder_maxout,
             drop_rate=self.drop_prob_lm, generator=generator, training=training)
-        return apply_linear(params["logit"], out), state
+        return vocab_logits(lambda x: apply_linear(params["logit"], x), out,
+                            self.vocab_parallel), state
 
     def decode_logprobs(self, params, xt, memory, state, *, generator=None,
                         training=False):

@@ -26,7 +26,7 @@ from ..device import resolve_device
 from ..ops import attention, cells, mos
 from ..ops.initializers import apply_linear, index_params, linear, stack_params
 from .base import (EncodeOut, embed_tokens, init_embed_logit, resolve_tied, review_step,
-                   single_encoder, xe_decode)
+                   single_encoder, vocab_logits, vocab_parallel_field, xe_decode)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +52,7 @@ class ReviewNetModel:
     use_remat: bool = False
     remat_policy: str = "save_ctx"
     tied_att_keys: bool = False
+    vocab_parallel: object = vocab_parallel_field()
 
     @classmethod
     def from_opt(cls, opt):
@@ -123,7 +124,7 @@ class ReviewNetModel:
     # ------------------------------------------------------------- public API
 
     def embed(self, params, tokens):
-        return embed_tokens(params, tokens)
+        return embed_tokens(params, tokens, self.vocab_parallel)
 
     def encode(self, params, fc_feats, att_feats, *, generator=None, training=False):
         """fc_feats (B, D) and att_feats (B, A, D), or sequences of one."""
@@ -172,14 +173,18 @@ class ReviewNetModel:
         out, state = self._decode_out(params, xt, memory, state, generator, training)
         if self.use_mos:
             return mos.apply(params["mos"], out), state
-        return apply_linear(params["logit"], out), state
+        return self._logits(params, out), state
 
     def decode_logprobs(self, params, xt, memory, state, *, generator=None,
                         training=False):
         out, state = self._decode_out(params, xt, memory, state, generator, training)
         if self.use_mos:
             return mos.log_apply(params["mos"], out), state
-        return torch.log_softmax(apply_linear(params["logit"], out).float(), dim=-1), state
+        return torch.log_softmax(self._logits(params, out).float(), dim=-1), state
+
+    def _logits(self, params, out):
+        return vocab_logits(lambda x: apply_linear(params["logit"], x), out,
+                            self.vocab_parallel)
 
     def forward(self, params, fc_feats, att_feats, seq, *, ss_prob=0.0,
                 generator=None, training=False):

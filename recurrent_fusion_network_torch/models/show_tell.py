@@ -21,7 +21,8 @@ import torch
 from ..device import resolve_device
 from ..ops import cells
 from ..ops.initializers import apply_linear, linear
-from .base import EncodeOut, embed_tokens, init_embed_logit, single_encoder, xe_decode
+from .base import (EncodeOut, embed_tokens, init_embed_logit, single_encoder, vocab_logits,
+                   vocab_parallel_field, xe_decode)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +34,7 @@ class ShowTellModel:
     num_layers: int = 1
     drop_prob_lm: float = 0.0
     fc_feat_size: int = 2048
+    vocab_parallel: object = vocab_parallel_field()
 
     @classmethod
     def from_opt(cls, opt):
@@ -90,7 +92,7 @@ class ShowTellModel:
     # ------------------------------------------------------------- public API
 
     def embed(self, params, tokens):
-        return embed_tokens(params, tokens)
+        return embed_tokens(params, tokens, self.vocab_parallel)
 
     def encode(self, params, fc_feats, att_feats=None, *, generator=None,
                training=False):
@@ -106,7 +108,9 @@ class ShowTellModel:
     def decode_logits(self, params, xt, memory, state, *, generator=None,
                       training=False):
         h, state = self._core(params, xt, state, generator, training)
-        return cells.promoted_matmul(h, params["logit"]["w"]) + params["logit"]["b"], state
+        logit = params["logit"]
+        return vocab_logits(lambda x: cells.promoted_matmul(x, logit["w"]) + logit["b"], h,
+                            self.vocab_parallel), state
 
     def decode_logprobs(self, params, xt, memory, state, *, generator=None,
                         training=False):

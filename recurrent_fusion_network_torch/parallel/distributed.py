@@ -8,11 +8,18 @@ one process group: ``python -m torch.distributed.run --nproc_per_node N``
 starts them with the rendezvous in the environment, ``spawn_local`` does
 the same from inside a CLI.
 
-  initialize(backend, device)  join the group the launcher's environment
+  initialize(backend, device, mp)
+                               join the group the launcher's environment
                                names (MASTER_ADDR, MASTER_PORT, WORLD_SIZE,
                                RANK, LOCAL_RANK), as the JAX package reads
-                               JAX_COORDINATOR_ADDRESS and its siblings
-  host_shard()                 (rank, world) for the DataLoader
+                               JAX_COORDINATOR_ADDRESS and its siblings,
+                               and lay its ranks out as dp x mp once: rank
+                               r is dp index r // mp and mp index r % mp
+                               (JAX's reshape(dp, mp)), with a dp group per
+                               mp index and an mp group per dp index
+  rank()                       this process's rank (0 alone)
+  host_shard()                 (dp index, dp) for the DataLoader: the mp
+                               ranks of one dp index load the same rows
   host_mean(value, weight)     count-weighted mean of a host scalar
   all_hosts_agree(flag)        AND of a host flag (early stop, fleet stop)
   any_host(flag)               OR of a host flag (the preemption agreement)
@@ -34,7 +41,7 @@ import os
 import signal
 import socket
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import torch
@@ -49,13 +56,31 @@ ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
 class Cluster:
     """This process's place in the group: its rank among ``world``, its
     device, the backend of the default group and the gloo group of the host
-    collectives (the default group itself under gloo)."""
+    collectives (the default group itself under gloo); the layout of the
+    ranks as a dp x mp grid, fixed when the group is joined, with this
+    rank's dp group (the ranks of its mp index; None: the default group)
+    and mp group (the ranks of its dp index; None at mp 1)."""
 
     rank: int
     world: int
     device: torch.device
     backend: str
     host_group: object
+    mp: int = 1
+    dp_group: object = None
+    mp_group: object = None
+
+    @property
+    def dp(self) -> int:
+        return self.world // self.mp
+
+    @property
+    def dp_index(self) -> int:
+        return self.rank // self.mp
+
+    @property
+    def mp_index(self) -> int:
+        return self.rank % self.mp
 
 
 # the group this process joined (torch.distributed's default group is
@@ -73,14 +98,20 @@ def cluster() -> Optional[Cluster]:
     return _cluster
 
 
-def initialize(backend: Optional[str] = None, *, device=None) -> Cluster:
+def initialize(backend: Optional[str] = None, *, device=None, mp: int = 1) -> Cluster:
     """Join the process group of the launcher's environment.
 
     ``device``: this rank's device; None or "cuda" -> ``cuda:LOCAL_RANK``,
     "cpu" -> the CPU, an indexed CUDA device as given (two ranks may share
     one card under gloo); CPU ranks split the host's threads between the
     local ranks. ``backend``: NCCL on CUDA and gloo on the CPU unless
-    named; a named backend is used or refused, never swapped."""
+    named; a named backend is used or refused, never swapped. ``mp``: the
+    ranks' layout, dp = world / mp, for the life of the group (JAX
+    ``make_mesh_2d``'s ``reshape(dp, mp)``): an mp group is a run of mp
+    consecutive ranks, and every rank makes every group, in one order.
+    ``mp`` 1 is the data-parallel layout (the default group is the dp
+    group). Raises ValueError, before joining, where the world does not
+    divide by ``mp``."""
     global _cluster
     if _cluster is not None:
         raise RuntimeError("this process has already joined a process group")
@@ -89,6 +120,8 @@ def initialize(backend: Optional[str] = None, *, device=None) -> Cluster:
                            "RANK): start the ranks with python -m torch.distributed.run or "
                            "spawn_local")
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    if mp < 1 or world % mp:
+        raise ValueError(f"the {world} rank(s) do not make a dp x mp grid with mp {mp}")
     local_rank = int(os.environ.get("LOCAL_RANK", rank))
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
@@ -110,6 +143,12 @@ def initialize(backend: Optional[str] = None, *, device=None) -> Cluster:
     dist.init_process_group(backend, rank=rank, world_size=world, **kw)
     host = dist.group.WORLD if backend == "gloo" else dist.new_group(backend="gloo")
     _cluster = Cluster(rank, world, dev, backend, host)
+    if mp > 1:
+        dp = world // mp
+        dp_groups = [dist.new_group([d * mp + m for d in range(dp)]) for m in range(mp)]
+        mp_groups = [dist.new_group(list(range(d * mp, (d + 1) * mp))) for d in range(dp)]
+        _cluster = replace(_cluster, mp=mp, dp_group=dp_groups[rank % mp],
+                           mp_group=mp_groups[rank // mp])
     return _cluster
 
 
@@ -121,10 +160,16 @@ def shutdown() -> None:
         dist.destroy_process_group()
 
 
+def rank() -> int:
+    """This process's rank in the group; 0 alone."""
+    return 0 if _cluster is None else _cluster.rank
+
+
 def host_shard():
-    """(rank, world): the DataLoader's ``host_shard``; (0, 1) alone."""
+    """(dp index, dp): the DataLoader's ``host_shard``, so the mp ranks of
+    one dp index load the same rows; (0, 1) alone."""
     c = _cluster
-    return (0, 1) if c is None else (c.rank, c.world)
+    return (0, 1) if c is None else (c.dp_index, c.dp)
 
 
 def _host_reduce(values, dtype, op):

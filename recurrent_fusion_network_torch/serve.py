@@ -21,10 +21,11 @@ The front end is the asyncio one (``decoding/aio_serve.py``) unless
 the threading one, which alone answers ``/caption_image``. The CLI reads
 every flag of the training and eval CLIs, as the JAX serve CLI does;
 ``--checkpoint_backend orbax`` serves a checkpoint of DCP directories;
-``--num_dp_devices``, ``--async_opt`` and ``--eval_ensemble_multi_gpu`` are
-read and ignored, as the JAX serve CLI ignores them. Those of features the
-port does not have (``--serve_dp_devices`` and ``--num_mp_devices`` above 1,
-ROADMAP.md queue 1, M10b) raise ``NotImplementedError`` with their entry.
+``--num_dp_devices``, ``--num_mp_devices``, ``--async_opt`` and
+``--eval_ensemble_multi_gpu`` are read and ignored, as the JAX serve CLI
+ignores them. ``--serve_dp_devices N`` decodes each batch over a mesh of
+the first N cards (``parallel/mesh.py::DeviceMesh``; more than the visible
+cards raise), one block of ``--serve_batch_size / N`` rows a card.
 
 It runs on CUDA unless ``--device cpu`` is given, and raises when CUDA is
 absent otherwise. SIGTERM / SIGINT drain in-flight requests and exit 0.
@@ -44,13 +45,22 @@ from .decoding.aio_serve import run_server_async
 from .decoding.http_serve import CaptionService, run_server
 from .device import resolve_device
 from .models import setup
+from .parallel.mesh import make_device_mesh, visible_devices
 from .training.checkpoint import backend, cast_tree
 
 
-def build_service(opt) -> CaptionService:
+def build_service(opt, devices=None) -> CaptionService:
     """Checkpoint (written by the JAX package) -> a running CaptionService
-    on ``opt.device``, in ``opt.serve_dtype``."""
+    on ``opt.device``, in ``opt.serve_dtype``; with --serve_dp_devices N >
+    1 on a mesh of the first N of ``devices`` (default: the visible cards,
+    or the one CPU under --device cpu; JAX serve.py:101-104)."""
     device = resolve_device(opt.device)  # before reading the checkpoint
+    mesh = None
+    n_devices = getattr(opt, "serve_dp_devices", 1)  # parse_opt's options have none
+    if n_devices > 1:
+        mesh = make_device_mesh(n_devices, visible_devices(opt.device)
+                                if devices is None else devices)
+        device = mesh.devices[0]
     params, infos = backend(opt).load_checkpoint(
         opt.model_path or opt.checkpoint_path, opt.load_model_id, opt.rank,
         best=True, prefix="rl_" if opt.rl_prefix else "")
@@ -73,7 +83,8 @@ def build_service(opt) -> CaptionService:
         backbone = (bb_params, feats_fn, 448)
     return CaptionService(model, params, vocab, device=device,
                           batch_size=opt.serve_batch_size,
-                          beam_size=opt.beam_size, depth=opt.serve_depth, backbone=backbone)
+                          beam_size=opt.beam_size, depth=opt.serve_depth, backbone=backbone,
+                          mesh=mesh)
 
 
 def main(argv=None):
@@ -95,8 +106,10 @@ def main(argv=None):
         print("--backbone_weights set: using the threading front end "
               "(/caption_image support)", flush=True)
         frontend = "threads"
+    where = (service.device if service.mesh is None
+             else "mesh " + ",".join(str(d) for d in service.mesh.devices))
     ready = (f"(batch {opt.serve_batch_size}, beam {opt.beam_size}, {opt.serve_dtype}, "
-             f"{service.device}, {frontend})")
+             f"{where}, {frontend})")
     if frontend == "asyncio":
         fe = run_server_async(service, opt.host, opt.port)
         print(f"caption service on {opt.host}:{fe.port} {ready}", flush=True)

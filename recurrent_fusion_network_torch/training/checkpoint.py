@@ -75,9 +75,9 @@ def writes_here(ckpt) -> bool:
     the backend ``ckpt``: every rank for a collective one (DCP plans each
     save over the group), rank 0 alone for pickle files (the ranks hold the
     same parameters, and one writer keeps them off each other's files)."""
-    from ..parallel.distributed import host_shard
+    from ..parallel.distributed import rank
 
-    return ckpt.collective or host_shard()[0] == 0
+    return ckpt.collective or rank() == 0
 
 
 _ALLOWED_MODULES = ("numpy", "ml_dtypes", "collections")

@@ -17,10 +17,16 @@ beam), in one loop:
 The member params go to the device once, cast to bf16 on the host first
 under ``--dtype bfloat16``. Each batch's features are deduped to one row
 per image on the host before the copy, and batches are dispatched through
-``decoding/serve.py::pipelined_map`` with depth 2. The ensemble over a
-device mesh (the JAX function's ``mesh`` argument, which no JAX CLI flag
-reaches) is not ported (ROADMAP.md queue 1, M10b); the CLI reads
-``--eval_ensemble_multi_gpu`` and ignores it, as the JAX package does.
+``decoding/serve.py::pipelined_map`` with depth 2.
+
+With a ``mesh`` (a ``parallel/mesh.py::DeviceMesh``; JAX
+eval_ensemble.py:79-137) every member's params go to every device of it
+once, each batch's images are split into one block a device, every block's
+decode is queued before any readback, and the blocks' sentences are joined
+in order. In a process group of several ranks the mesh is dropped: each
+rank decodes its rows alone (JAX :85-86). No CLI flag reaches the mesh, as
+in the JAX package; the CLI reads ``--eval_ensemble_multi_gpu`` and ignores
+it, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -37,6 +43,8 @@ from ..decoding.serve import pipelined_map
 from ..device import resolve_device
 from ..metrics.coco_eval import language_eval
 from ..ops.initializers import tree_map
+from ..parallel import distributed
+from ..parallel.mesh import join_blocks, replicate, with_dp_sharding
 from .checkpoint import cast_tree
 from .eval_split import default_gts_lookup, eval_dtype, iter_eval_batches, trim_to_budget
 
@@ -52,29 +60,32 @@ def _member_splits(fc1, att1, n_members, diff_feat):
     return [(fc1, att1)] * n_members
 
 
+def _host(arrays, dtype):
+    """Host float32 arrays -> host tensors of ``dtype`` (bf16 halves the
+    bytes copied)."""
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dtype or torch.float32)
+            for a in arrays]
+
+
 def _to_device(arrays, device, dtype):
-    """Host float32 arrays -> tensors on ``device``, cast on the host first
-    (bf16 halves the bytes copied). A CUDA copy goes from page-locked
-    memory (PyTorch's caching host allocator) without a sync, so it queues
-    behind the batch in flight."""
+    """Host float32 arrays -> tensors on ``device``, cast on the host first.
+    A CUDA copy goes from page-locked memory (PyTorch's caching host
+    allocator) without a sync, so it queues behind the batch in flight."""
     out = []
-    for a in arrays:
-        t = torch.from_numpy(np.ascontiguousarray(a)).to(dtype or torch.float32)
+    for t in _host(arrays, dtype):
         if device.type == "cuda":
             t = t.pin_memory()
         out.append(t.to(device, non_blocking=True))
     return out
 
 
-def _member_feats(data, n_members, diff_feat, batch_size, seq_per_img, device, dtype):
-    """Per-member (fc, att), deduped to one row per image on the host
-    before the copy: the loader repeats every image seq_per_img times for
-    the loss, which the ensemble does not compute."""
+def _dedupe(data, batch_size, seq_per_img):
+    """(fc list, att list) of one row per image, on the host before the
+    copy: the loader repeats every image seq_per_img times for the loss,
+    which the ensemble does not compute."""
     fc, att = batch_feats(data)
     rows = np.arange(batch_size) * seq_per_img
-    return _member_splits(_to_device([f[rows] for f in fc], device, dtype),
-                          _to_device([a[rows] for a in att], device, dtype),
-                          n_members, diff_feat)
+    return [f[rows] for f in fc], [a[rows] for a in att]
 
 
 def _variant_feats(loader, data, variant):
@@ -95,10 +106,14 @@ def eval_ensemble(members: Sequence[Tuple], loader, opt, *, split: str = "test",
                   beam_size: Optional[int] = None, val_images_use: Optional[int] = None,
                   diff_feat: bool = False, flip_ensemble: Optional[bool] = None,
                   language_eval_flag: Optional[bool] = None, gts_lookup=None, rank: int = 0,
-                  verbose: bool = False, device=None):
+                  verbose: bool = False, device=None, mesh=None):
     """Returns (predictions, lang_stats or None), decoding on ``device``
-    (default ``opt.device``: CUDA unless "cpu"). ``members``: (model,
-    params) pairs, params a tensor tree on the host or on ``device``."""
+    (default ``opt.device``: CUDA unless "cpu") or over the devices of
+    ``mesh``. ``members``: (model, params) pairs, params a tensor tree on
+    the host or on ``device``."""
+    c = distributed.cluster()
+    if mesh is not None and c is not None and c.world > 1:
+        mesh = None  # each rank decodes its own rows (JAX :85-86)
     device = resolve_device(getattr(opt, "device", None) if device is None else device)
     beam_size = opt.beam_size if beam_size is None else beam_size
     val_images_use = opt.val_images_use if val_images_use is None else val_images_use
@@ -111,25 +126,35 @@ def eval_ensemble(members: Sequence[Tuple], loader, opt, *, split: str = "test",
     dtype = eval_dtype(opt)
     # --dtype bfloat16 halves the members' residency: cast on the host,
     # then every member's params cross to the device once for all batches
-    params_list = [tree_map(lambda t: t.to(device),
-                            cast_tree(p, dtype) if dtype is not None else p)
-                   for _, p in members]
+    host_params = [cast_tree(p, dtype) if dtype is not None else p for _, p in members]
+    if mesh is None:
+        params_list = [tree_map(lambda t: t.to(device), p) for p in host_params]
+    else:  # every member on every device: one list of members a device
+        params_list = [list(per) for per in zip(*(replicate(mesh, p) for p in host_params))]
 
     @torch.inference_mode()
-    def decode(feats):
-        return ensemble_sample(models, params_list, feats, beam_size=beam_size)
+    def decode(fc, att):
+        """Queue the decode of one batch's images (host arrays, one per
+        encoder); device tensors out, a list of the blocks' on a mesh."""
+        if mesh is None:
+            return ensemble_sample(models, params_list, _member_splits(
+                _to_device(fc, device, dtype), _to_device(att, device, dtype), len(members),
+                diff_feat), beam_size=beam_size)
+        blocks = with_dp_sharding(mesh, (_host(fc, dtype), _host(att, dtype)))
+        return [ensemble_sample(models, ps, _member_splits(f, a, len(members), diff_feat),
+                                beam_size=beam_size)
+                for ps, (f, a) in zip(params_list, blocks)]
 
     def dispatch(data):
-        """Queue the decode(s) of one batch; device tensors out."""
-        out_a = decode(_member_feats(data, len(members), diff_feat, loader.batch_size,
-                                     loader.seq_per_img, device, dtype))
+        """Queue the decode(s) of one batch."""
+        out_a = decode(*_dedupe(data, loader.batch_size, loader.seq_per_img))
         if not flip_ensemble:
             return out_a, None
         # the same images under the flip variant (the iterator does not move)
-        fc_f, att_f = _variant_feats(loader, data, "flip")
-        return out_a, decode(_member_splits(_to_device(fc_f, device, dtype),
-                                            _to_device(att_f, device, dtype),
-                                            len(members), diff_feat))
+        return out_a, decode(*_variant_feats(loader, data, "flip"))
+
+    def joined(out):
+        return out if mesh is None or out is None else join_blocks(out)
 
     loader.reset_iterator(split)
     vocab = loader.get_vocab()
@@ -137,6 +162,7 @@ def eval_ensemble(members: Sequence[Tuple], loader, opt, *, split: str = "test",
     batches = iter_eval_batches(loader, split, val_images_use,
                                 variant="original" if flip_ensemble else None)
     for data, (out_a, out_b) in pipelined_map(dispatch, batches, depth=2):
+        out_a, out_b = joined(out_a), joined(out_b)
         seq = flip_combine(out_a, out_b)[0] if flip_ensemble else out_a.seq.cpu().numpy()
         for k, sent in enumerate(decode_sequence(vocab, seq)):
             predictions.append({"image_id": data["infos"][k]["id"], "caption": sent})

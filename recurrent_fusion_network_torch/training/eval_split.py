@@ -17,6 +17,14 @@ data-parallel ranks each rank decodes and scores its block of every batch,
 and the budget is the global one (JAX eval_split.py:177-188): a rank may
 keep fewer images than another, or none; the caller weighs the ranks'
 scores by their image counts (``parallel/distributed.py::host_mean``).
+
+With a single-process ``mesh`` (``parallel/mesh.py::DeviceMesh``; JAX
+eval_split.py:177-222) each batch is split into one block of images a
+device, the params replicated once a device: the loss is the mean of the
+blocks' (each a mean over equal rows), the sentences the blocks' in order;
+multinomial draws come from a generator a block (seed + block), so they
+differ from the unsplit batch's. In a process group of several ranks the
+mesh is dropped.
 """
 
 from __future__ import annotations
@@ -30,6 +38,8 @@ from ..decoding.api import model_sample
 from ..decoding.serve import pipelined_map
 from ..device import resolve_device
 from ..metrics.coco_eval import language_eval
+from ..parallel import distributed
+from ..parallel.mesh import join_blocks, replicate, with_dp_sharding
 from .checkpoint import cast_tree
 from .criterion import make_criterion
 
@@ -100,9 +110,13 @@ def default_gts_lookup(loader):
 
 def eval_split(model, params, loader, opt, *, split="val", val_images_use=None,
                beam_size=None, language_eval_flag=None, sample_max=True,
-               gts_lookup=None, rank=0, verbose=False, device=None):
+               gts_lookup=None, rank=0, verbose=False, device=None, mesh=None):
     """Returns (mean_loss, predictions, lang_stats or None), on
-    ``device`` (default ``opt.device``: CUDA unless "cpu")."""
+    ``device`` (default ``opt.device``: CUDA unless "cpu") or over the
+    devices of ``mesh``."""
+    c = distributed.cluster()
+    if mesh is not None and c is not None and c.world > 1:
+        mesh = None  # per-rank local eval (JAX :177-178)
     device = resolve_device(getattr(opt, "device", None) if device is None else device)
     val_images_use = opt.val_images_use if val_images_use is None else val_images_use
     beam_size = opt.beam_size if beam_size is None else beam_size
@@ -116,15 +130,28 @@ def eval_split(model, params, loader, opt, *, split="val", val_images_use=None,
     # a sharded loader's batches hold this rank's block of images
     local_bs = loader.batch_size // getattr(loader, "host_count", 1)
 
+    def run(params, batch, n_images, generator):
+        fc, att, labels, masks, top_words = batch
+        lps, reason = model.forward(params, fc, att, labels)
+        loss = crit(lps, labels, masks, reason, top_words)
+        fc1, att1 = dedupe_feats(fc, att, n_images, loader.seq_per_img)
+        return loss, model_sample(model, params, fc1, att1, beam_size=beam_size,
+                                  sample_max=sample_max, generator=generator)
+
+    if mesh is not None:
+        replicas = replicate(mesh, params)
+        generators = [torch.Generator(device=d).manual_seed(
+            (getattr(opt, "seed", 0) or 0) + k) for k, d in enumerate(mesh.devices)]
+
     @torch.inference_mode()
     def dispatch(data):
         """Queue the loss and the decode of one batch; device tensors out."""
-        fc, att, labels, masks, top_words = device_batch(data, device, dtype)
-        lps, reason = model.forward(params, fc, att, labels)
-        loss = crit(lps, labels, masks, reason, top_words)
-        fc1, att1 = dedupe_feats(fc, att, local_bs, loader.seq_per_img)
-        return loss, model_sample(model, params, fc1, att1, beam_size=beam_size,
-                                  sample_max=sample_max, generator=generator)
+        if mesh is None:
+            return run(params, device_batch(data, device, dtype), local_bs, generator)
+        blocks = with_dp_sharding(mesh, device_batch(data, "cpu", dtype))
+        outs = [run(p, b, local_bs // mesh.dp, g)
+                for p, b, g in zip(replicas, blocks, generators)]
+        return [loss for loss, _ in outs], [out for _, out in outs]
 
     loader.reset_iterator(split)
     loss_sum, loss_evals = 0.0, 0
@@ -132,6 +159,8 @@ def eval_split(model, params, loader, opt, *, split="val", val_images_use=None,
     vocab = loader.get_vocab()
     batches = iter_eval_batches(loader, split, val_images_use)
     for data, (loss_dev, out) in pipelined_map(dispatch, batches, depth=2):
+        if mesh is not None:  # the blocks' mean loss and rows in order
+            loss_dev, out = sum(float(x) for x in loss_dev) / mesh.dp, join_blocks(out)
         loss = float(loss_dev)
         loss_sum += loss
         loss_evals += 1

@@ -60,6 +60,7 @@ from ..device import resolve_device
 from ..metrics.spice import make_spice_fn
 from ..models import setup
 from ..parallel.distributed import all_hosts_agree
+from ..parallel.mesh import MP_FLEET
 from ..rewards.self_critical import compute_reward
 from ..utils.logging import JsonlLogger
 from .checkpoint import backend
@@ -185,6 +186,8 @@ def local_seeds(opt, n_seeds: int, mesh=None) -> range:
     ``_local_seed_ids``)."""
     if mesh is None:
         return range(n_seeds)
+    if mesh.mp > 1:  # JAX main.py:53-56
+        raise ValueError(MP_FLEET)
     if n_seeds % mesh.world:
         raise ValueError(f"--n_seeds {n_seeds} must divide by the {mesh.world} ranks of "
                          "the fleet")

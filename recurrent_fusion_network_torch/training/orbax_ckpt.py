@@ -81,7 +81,7 @@ def _group():
 
 def _lead() -> bool:
     """Whether this process moves directories and writes the infos."""
-    return distributed.host_shard()[0] == 0
+    return distributed.rank() == 0
 
 
 # ------------------------------------------------------------ the tree

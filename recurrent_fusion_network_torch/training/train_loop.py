@@ -25,12 +25,23 @@ at the global batch's size and keep the rank's rows (``RowShard``). At a
 boundary the score is the count-weighted mean of the ranks' (``host_mean``),
 the early stop is agreed (``all_hosts_agree``), and rank 0 writes the
 triples (every rank for DCP, which is collective). Rank 0 alone prints and
-writes the JSONL log. The dp x mp mesh is not ported (ROADMAP.md queue 1,
-M10b).
+writes the JSONL log.
+
+On a dp x mp mesh (``--num_mp_devices``; JAX train_loop.py:143-160) the
+params and the optimizer state are sharded after the build or the resume
+(``shard_params_2d``, ``shard_opt_state_2d``: the vocabulary-wide logit
+and embedding split over the mp ranks), and the train step runs a model
+whose ``vocab_parallel`` is the rank's share; the clamp, the weight decay
+and the optimizers are elementwise and act on the shards as they are. The
+gradients are averaged over the dp group. At a boundary, and at the end,
+the full tree is gathered: eval runs on it as under dp alone, and rank 0
+writes it as the triple, the one the JAX package and a solo run read. A
+resume from any triple loads the full tree and shards it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Optional
 
@@ -46,6 +57,8 @@ from ..models import setup
 from ..models.base import resolve_tied
 from ..ops.initializers import tree_leaves, tree_map, tree_unflatten
 from ..parallel.distributed import all_hosts_agree, barrier, host_mean
+from ..parallel.mesh import (gather_opt_state_2d, gather_params_2d, is_mesh_2d,
+                             shard_opt_state_2d, shard_params_2d)
 from ..utils.logging import JsonlLogger
 from ..utils.profiling import TraceWindow
 from .checkpoint import assert_arch_matches, backend, cast_tree, writes_here
@@ -278,9 +291,9 @@ def train(opt, loader, *, rank: int = 0, max_iterations: Optional[int] = None,
           log_fn=print, mesh=None):
     """Run XE training on ``opt.device`` (CUDA unless "cpu"). Returns the
     infos dict of the last checkpoint snapshot (or {}) updated with iter,
-    epoch, the histories, final_params and final_opt_state. ``mesh``: this
-    process is one rank of a data-parallel run (``parallel/mesh.py``), its
-    loader sharded over the ranks."""
+    epoch, the histories, final_params and final_opt_state (full trees).
+    ``mesh``: this process is one rank of a data-parallel or dp x mp run
+    (``parallel/mesh.py``), its loader sharded over the dp ranks."""
     device = resolve_device(opt.device)
     opt.vocab_size = loader.vocab_size
     opt.seq_length = loader.seq_length
@@ -289,10 +302,22 @@ def train(opt, loader, *, rank: int = 0, max_iterations: Optional[int] = None,
     tx = make_optimizer(opt)
     params, opt_state, generator, infos = start_state(opt, model, tx, loader, rank, device)
     lead = mesh is None or mesh.rank == 0
+    step_model, two_d = model, is_mesh_2d(mesh)
     if mesh is not None:
         mesh.replicate(params, opt_state)
+    if two_d:  # JAX :143-160
+        params = shard_params_2d(mesh, params)
+        opt_state = shard_opt_state_2d(mesh, opt_state, params)
+        step_model = dataclasses.replace(model, vocab_parallel=mesh.vocab)
     draws = generator if mesh is None else mesh.draws(generator)
     log_fn = log_fn if lead else quiet
+
+    def whole():
+        """(params, opt_state) as full trees: gathered over the mp ranks
+        on a dp x mp mesh (collective), else as they are."""
+        if not two_d:
+            return params, opt_state
+        return gather_params_2d(mesh, params), gather_opt_state_2d(mesh, opt_state, params)
 
     iteration = infos.get("iter", 0)
     epoch = infos.get("epoch", 0)
@@ -302,7 +327,7 @@ def train(opt, loader, *, rank: int = 0, max_iterations: Optional[int] = None,
     bounds = Boundaries(opt, rank, infos, mesh=mesh)
 
     compute_dtype = torch.bfloat16 if opt.dtype == "bfloat16" else None
-    train_step = make_train_step(model, crit, tx, compute_dtype, mesh)
+    train_step = make_train_step(step_model, crit, tx, compute_dtype, mesh)
     jlog = JsonlLogger((opt.json_log or None) if lead else None)
     guard = PreemptGuard.from_opt(opt)
     trace = TraceWindow.from_opt(opt)
@@ -363,11 +388,13 @@ def train(opt, loader, *, rank: int = 0, max_iterations: Optional[int] = None,
                 jlog.log(event="train", iter=iteration, epoch=epoch, loss=train_loss, lr=lr,
                          ss_prob=ss_prob, seconds=elapsed)
             if is_eval:
-                val_loss, lang_stats, best, eval_s = bounds.evaluate(model, params, loader,
-                                                                     iteration)
+                full_params, full_state = whole()
+                val_loss, lang_stats, best, eval_s = bounds.evaluate(model, full_params,
+                                                                     loader, iteration)
                 t_save = time.time()
                 infos = snapshot_infos()
-                bounds.save(params, opt_state, infos, best=best)
+                bounds.save(full_params, full_state, infos, best=best)
+                del full_params, full_state
                 if best:
                     log_fn(f"model saved to {opt.checkpoint_path} "
                            f"(CIDEr {bounds.current_score:.3f})")
@@ -381,7 +408,7 @@ def train(opt, loader, *, rank: int = 0, max_iterations: Optional[int] = None,
                 # SIGTERM: save at this boundary (post-step; resume replays
                 # nothing) and exit inside the preemption grace window
                 infos = snapshot_infos()
-                bounds.save(params, opt_state, infos)
+                bounds.save(*whole(), infos)
                 log_fn(f"rank {rank}: preempted — checkpoint saved "
                        f"(resumes at iter {iteration + 1})")
                 stop = True
@@ -410,6 +437,7 @@ def train(opt, loader, *, rank: int = 0, max_iterations: Optional[int] = None,
         guard.close()
     backend(opt).wait_until_finished()  # the last async save lands before the run ends
 
+    params, opt_state = whole()
     infos = dict(infos)
     infos.update(iter=iteration, epoch=epoch, loss_history=loss_history,
                  lr_history=lr_history, ss_prob_history=ss_prob_history,

@@ -69,6 +69,7 @@ from ..rewards.cider_d import CiderD
 from ..rewards.self_critical import compute_reward
 from ..ops.cells import RowShard
 from ..parallel.distributed import all_hosts_agree, host_mean
+from ..parallel.mesh import MP_RL
 from ..utils.logging import JsonlLogger
 from ..utils.profiling import TraceWindow
 from .checkpoint import backend
@@ -217,6 +218,8 @@ def train_rl(opt, loader, cider_scorer: CiderD, *, rank: int = 0,
     checkpoint's optimizer state. ``mesh``: this process is one rank of a
     data-parallel run, its loader sharded over the ranks.
     """
+    if mesh is not None and mesh.mp > 1:  # JAX main_rl.py:26-29
+        raise ValueError(MP_RL)
     device = resolve_device(opt.device)
     opt.vocab_size = loader.vocab_size
     opt.seq_length = loader.seq_length

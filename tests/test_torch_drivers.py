@@ -2,7 +2,7 @@
 CPU at tiny widths: ``eval_split``, ``train()`` across eval / checkpoint
 boundaries, checkpoint triples in both directions, ``train_rl()`` across a
 boundary, the SIGTERM save, the three CLIs, the M11 flags, the M10a flags
-the eval CLIs ignore and the flags that are not ported.
+the eval CLIs ignore and the mesh flags, which parse as JAX parses them.
 
 Both packages run the synthetic fixture (``data/synthetic.py``, the same
 batches from the same seed) at dropout 0 without scheduled sampling, from
@@ -388,11 +388,32 @@ def test_the_three_clis_run_in_process(tmp_path, capsys):
     assert any('"event": "val"' in e for e in events) and any('"rl_val"' in e for e in events)
 
 
-@pytest.mark.parametrize("flag, value, entry", [("num_mp_devices", "2", "M10")])
-def test_unported_flags_raise(flag, value, entry):
-    with pytest.raises(NotImplementedError, match=entry):
-        t_config.parse_opt(["--device", "cpu", "--feature_type", "synthetic",
-                            f"--{flag}", value])
+@pytest.mark.parametrize("flag, value", [("num_mp_devices", "2")])
+def test_the_mesh_flags_parse_as_jax_and_reach_the_2d_mesh(monkeypatch, flag, value):
+    """--num_mp_devices 2 parses as JAX parse_opt parses it, and a launched
+    rank of main joins the group laid out as dp x mp and builds the 1 x 2
+    mesh (the cluster itself is tests/test_torch_mesh_2d.py's)."""
+    from recurrent_fusion_network_torch import main as t_main
+    from recurrent_fusion_network_tpu.config import parse_opt as j_parse
+
+    argv = TINY_FLAGS + [f"--{flag}", value]
+    assert getattr(t_config.parse_opt(argv), flag) == getattr(j_parse(argv[2:]), flag) == 2
+    calls = []
+
+    class Reached(Exception):
+        pass
+
+    def mesh_2d(dp, mp):
+        calls.append(("mesh", dp, mp))
+        raise Reached
+
+    monkeypatch.setattr(t_main.distributed, "launched", lambda: True)
+    monkeypatch.setattr(t_main.distributed, "initialize",
+                        lambda **kw: calls.append(("join", kw["device"], kw["mp"])))
+    monkeypatch.setattr(t_main, "make_mesh_2d", mesh_2d)
+    with pytest.raises(Reached):
+        t_main.main(argv)
+    assert calls == [("join", "cpu", 2), ("mesh", 1, 2)]
 
 
 @pytest.mark.parametrize("cli, flag, value", [
@@ -529,16 +550,16 @@ def _jax_serve_options():
     return options, pre
 
 
-# the JAX serve options whose feature the port does not have: a value that
-# asks for it raises NotImplementedError naming its ROADMAP entry
-UNPORTED_SERVE_VALUES = {"--serve_dp_devices": ("2", "M10"), "--num_mp_devices": ("2", "M10")}
+# the JAX serve options of the meshes, at a value above 1: they parse and
+# reach the options (the serving mesh itself is tests/test_torch_serve_mesh.py's)
+MESH_SERVE_VALUES = {"--serve_dp_devices": "2", "--num_mp_devices": "2"}
 
 
 def test_serve_cli_accepts_every_jax_serve_option():
     """F4: every option of the JAX serve CLI, given a valid value (each
     choice, or its default), parses in the port's serve parser and reaches
-    the options; one asking for an unported feature raises by name. The
-    front end defaults to asyncio, as the JAX CLI's does."""
+    the options, the meshes' above 1 too. The front end defaults to
+    asyncio, as the JAX CLI's does."""
     from recurrent_fusion_network_tpu.config import parse_opt as j_parse
 
     options, pre = _jax_serve_options()
@@ -549,10 +570,11 @@ def test_serve_cli_accepts_every_jax_serve_option():
             # leaves them (--tied_att_keys -1 resolves to the profile's)
             want = value if flag in pre else getattr(j_parse([flag, str(value)]), flag[2:])
             assert got == want, (flag, value, got, want)
-    for flag, (value, entry) in UNPORTED_SERVE_VALUES.items():
+    for flag, value in MESH_SERVE_VALUES.items():
         assert flag in options
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{entry}"):
-            t_config.parse_serve_opt([flag, value])
+        got = getattr(t_config.parse_serve_opt([flag, value]), flag[2:])
+        want = int(value) if flag in pre else getattr(j_parse([flag, value]), flag[2:])
+        assert got == want == 2, (flag, got, want)
     opt = t_config.parse_serve_opt(["--serve_frontend", "threads", "--serve_dp_devices", "1",
                                     "--checkpoint_backend", "pickle", "--port", "0"])
     assert (opt.serve_frontend, opt.serve_dp_devices, opt.checkpoint_backend, opt.port) == (
