@@ -249,7 +249,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
               sharing cuda:0 (parallel.distributed.initialize(
               backend="gloo"), each rank a process of this script under
               --dp-pair-rank): XE f32 at B = 512 rows (256 a rank) and SCST
-              f32 at B = 256 (128 a rank) for 3 steps, losses within rtol
+              f32 at B = 256 (128 a rank) for PAIR_STEPS = 2 steps (cut
+              from 3 to make room for phase 17), losses within rtol
               1e-4 / atol 1e-6 (XE) and rtol 2e-4 / atol 1e-6 (SCST), the
               first step's grads leaf by leaf within the same (XE's reason
               heads and review cells, SWITCH_LEAVES, within atol 1e-5); the
@@ -262,7 +263,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
               and final params bit for bit the single-process fleet's; the
               same pair laid out as dp 1 x mp 2 (--num_mp_devices 2, the
               flagship's logit and embedding split 4744 / 4744): the XE f32
-              run at 512 rows on each rank for 3 steps, the boundary at the
+              run at 512 rows on each rank for 2 steps, the boundary at the
               last, its losses and the first step's gathered grads within
               rtol 1e-4 / atol 1e-6 of the single-process XE run's on every
               leaf, the final params and grads bit for bit on both ranks,
@@ -289,6 +290,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
               those with the plain versions, 5 x 24 launches, the 8 metrics
               finite. Counters reset just before and read just after each
               path; every shape is checked against the plain versions.
+ 17. the full-pipeline quality proxy: python -m recurrent_fusion_network_
+              torch.pipeline_proxy --quick (the root pipeline_proxy.py on the
+              port; its learnable 3-encoder corpus of 60 / 16 / 16 images,
+              H = 96, A = 10 / 8 / 12, D = 64 / 48 / 56, 4 + 4 review steps,
+              10 tokens, f32, the default untied profile) in this process:
+              a PROXY_SEEDS = 2 XE fleet (120 steps at 8 images x 5), an
+              SCST fleet from its best triples (40 iterations, train-idf
+              CIDEr-D), each seed's greedy test CIDEr, the ensemble of the
+              rl_ best triples. The counters reset just before and read just
+              after: every XE step 27 + 27 launches, every SCST rollout 27 +
+              0 and step 27 + 27, every eval batch 54 + 0 and ensemble batch
+              2 x 27 + 0, adding up to the run's; none on the scalar path;
+              every shape checked against the plain versions; finite CIDEr
+              fields, SCST's params moved, the -best and rl_-best triples in
+              place; the ordering gates printed as they came out (--quick
+              asserts none, as in the root script); the wall seconds of the
+              XE fleet, the SCST fleet, the test CIDEr and the ensemble.
 The line before the last is the kernels JSON, the last line the device JSON.
 
 ``python3 chip_smoke.py --launch-probe LOG -m MODULE ARGS [--and-then -m
@@ -458,7 +476,7 @@ def site_times(torch, kernel, plain, sets):
                 event_ms=event_ms(torch, kernel, sets))
 
 
-def check_attention_kernel(torch, aa, sites, dtypes):
+def check_attention_kernel(torch, aa, sites, dtypes, hid=HID):
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     results = []
     for dtype in dtypes:
@@ -468,7 +486,7 @@ def check_attention_kernel(torch, aa, sites, dtypes):
                 def r(*shape, scale=1.0):
                     x = torch.randn(*shape, generator=gen, device=DEVICE) * scale
                     return x.to(dtype)
-                return (r(G * N, HID), r(G * N, A, HID), r(G, HID, scale=0.06),
+                return (r(G * N, hid), r(G * N, A, hid), r(G, hid, scale=0.06),
                         r(G, scale=0.06), r(G * N, A, D))
 
             ins = make()
@@ -489,13 +507,13 @@ def check_attention_kernel(torch, aa, sites, dtypes):
                   and torch.allclose(w.float(), wr.float(), **tol))
             esize = ins[0].element_size()
             nbytes = (sum(t.numel() for t in ins) + z.numel() + w.numel()) * esize
-            ops = G * N * A * (4 * HID + 2 * D + 3)
+            ops = G * N * A * (4 * hid + 2 * D + 3)
             n_sets = max(1, min(8, -(-200_000_000 // nbytes)))
             sets = [ins] + [make() for _ in range(n_sets - 1)]
             times = site_times(torch, aa.additive_attention, aa.additive_attention_ref, sets)
             ms, plain_ms = times["ms"], times["plain_ms"]
             bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
-            row = dict(site=name, dtype=dname, shape=[G, N, A, HID, D],
+            row = dict(site=name, dtype=dname, shape=[G, N, A, hid, D],
                        launches=launches, max_abs_err=err, max_rel_err=rel, ok=ok,
                        bitwise_repeat=repeat, **times, bound_ms=bound_ms,
                        bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
@@ -739,7 +757,7 @@ def _bwd_err(got, ref, tol):
     return abs_err, rel_err, ok
 
 
-def check_attention_backward(torch, aa, sites, dtypes):
+def check_attention_backward(torch, aa, sites, dtypes, hid=HID):
     """additive_attention_bwd vs additive_attention_bwd_ref at every given
     training site and dtype: errors, a bitwise repeat, device / event /
     plain ms and the bound. dz is random, w the forward's, the incoming
@@ -753,8 +771,8 @@ def check_attention_backward(torch, aa, sites, dtypes):
                 def r(*shape, scale=1.0):
                     x = torch.randn(*shape, generator=gen, device=DEVICE) * scale
                     return x.to(dtype)
-                q, keys, v, bv, values = (r(G * N, HID), r(G * N, A, HID),
-                                          r(G, HID, scale=0.06), r(G, scale=0.06),
+                q, keys, v, bv, values = (r(G * N, hid), r(G * N, A, hid),
+                                          r(G, hid, scale=0.06), r(G, scale=0.06),
                                           r(G * N, A, D))
                 _, w = aa.additive_attention_ref(q, keys, v, bv, values)
                 return (r(G * N, D), None, q, keys, v, values, w)
@@ -777,13 +795,13 @@ def check_attention_backward(torch, aa, sites, dtypes):
             n_in = sum(t.numel() for t in ins if t is not None)
             n_out = sum(t.numel() for t in got if t is not None)
             nbytes = (n_in + n_out) * esize
-            ops = G * N * A * (9 * HID + (3 if need_dvalues else 2) * D)
+            ops = G * N * A * (9 * hid + (3 if need_dvalues else 2) * D)
             n_sets = max(1, min(8, -(-200_000_000 // nbytes)))
             sets = [ins] + [make() for _ in range(n_sets - 1)]
             times = site_times(torch, kernel, plain, sets)
             ms, plain_ms = times["ms"], times["plain_ms"]
             bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-            row = dict(site=name, dtype=dname, shape=[G, N, A, HID, D],
+            row = dict(site=name, dtype=dname, shape=[G, N, A, hid, D],
                        dvalues=need_dvalues, launches=launches,
                        max_abs_err=err, max_rel_err=rel, ok=ok, bitwise_repeat=repeat,
                        **times,
@@ -1628,19 +1646,20 @@ class ShapeRecorder:
     go: inside ``run(name)`` both wrappers are wrapped (they launch nothing
     of their own), and each call on the card is counted under its shape (dtype, G,
     N, A, D, and for the backward whether it computes dvalues) and the
-    run's name. Every shape is then checked against the plain version."""
+    run's name. Every shape is then checked against the plain version.
+    ``hid``: the attention width H of the model that runs (phase 17's is
+    not the flagship's)."""
 
-    def __init__(self, aa):
-        self.aa = aa
+    def __init__(self, aa, hid=HID):
+        self.aa, self.hid = aa, hid
         self.fwd, self.bwd = {}, {}  # shape -> {run: launches}
 
     def _count(self, table, shape, run, n=1):
         runs = table.setdefault(shape, {})
         runs[run] = runs.get(run, 0) + n
 
-    @staticmethod
-    def _shape(q, keys, v, values, mask, dw=None):
-        if mask is not None or dw is not None or keys.shape[2] != HID:
+    def _shape(self, q, keys, v, values, mask, dw=None):
+        if mask is not None or dw is not None or keys.shape[2] != self.hid:
             raise AssertionError(
                 f"drivers: an attention call with a mask, an incoming grad of w or H = "
                 f"{keys.shape[2]}, which the checks do not cover")
@@ -1687,16 +1706,17 @@ def check_driver_sites(torch, aa, recorder, groups):
                              for g, names in groups.items()})
 
     fwd_rows, bwd_rows = [], []
+    h = "" if recorder.hid == HID else f"_H{recorder.hid}"
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).replace("torch.", "")
-        fwd = [(f"drivers_G{G}_N{N}_A{A}_D{D}", G, N, A, D, launches(runs))
+        fwd = [(f"drivers_G{G}_N{N}_A{A}_D{D}{h}", G, N, A, D, launches(runs))
                for (dt, G, N, A, D), runs in sorted(recorder.fwd.items()) if dt == dname]
-        bwd = [(f"drivers_G{G}_N{N}_A{A}_D{D}", G, N, A, D, need, launches(runs))
+        bwd = [(f"drivers_G{G}_N{N}_A{A}_D{D}{h}", G, N, A, D, need, launches(runs))
                for (dt, G, N, A, D, need), runs in sorted(recorder.bwd.items()) if dt == dname]
         if fwd:
-            fwd_rows += check_attention_kernel(torch, aa, fwd, (dtype,))
+            fwd_rows += check_attention_kernel(torch, aa, fwd, (dtype,), hid=recorder.hid)
         if bwd:
-            bwd_rows += check_attention_backward(torch, aa, bwd, (dtype,))
+            bwd_rows += check_attention_backward(torch, aa, bwd, (dtype,), hid=recorder.hid)
     return fwd_rows, bwd_rows
 
 
@@ -2373,9 +2393,12 @@ def _fleets(torch, model, card, counters, recorder, root, main_cli, main_rl_cli,
         counters, (S * (130 * FLEET_RL_ITERS + 2 * 2 * per_eval), S * 65 * FLEET_RL_ITERS),
         "fleets SCST", recorder, "fleet_scst")
     rl_files = sorted(f for f in os.listdir(ck) if f.startswith("rl_"))
-    # the mean rewards of this run's logged iterations (the history holds
-    # the XE losses too)
-    rewards = [[h[i] for i in sorted(h) if i >= steps] for h in res["loss_histories"]]
+    # the mean rewards of this run's logged iterations (a warm start's
+    # history holds nothing of the XE run's)
+    rewards = [[h[i] for i in sorted(h)] for h in res["reward_histories"]]
+    if any(min(h, default=steps) < steps for h in res["reward_histories"]):
+        raise AssertionError(f"fleets SCST: reward histories {res['reward_histories']} hold "
+                             "iterations of the XE run")
     if rl_files != fleet_files("fleet", S, "rl_") or res["iter"] != last \
             or not all(h and all(map(math.isfinite, h)) for h in rewards):
         raise AssertionError(f"fleets SCST: files {rl_files}, iter {res['iter']}, "
@@ -4440,7 +4463,7 @@ DP_FREE_GB = 30  # data set ~1.6 GB; a pickle and a DCP flagship triple (5.4 GB 
 # two first-step grads files (1.8 GB each) and the pair's preemption triple
 DP_XE_STEPS = 16  # the world-1 XE runs: steps 0..15, the boundary at 15 (14 steady gaps)
 DP_RL_ITERS = 8  # main_rl from the XE best triple: iterations 16..23, no boundary
-PAIR_STEPS = 3  # steps or iterations of each gloo-pair run
+PAIR_STEPS = 2  # steps or iterations of each gloo-pair run (cut from 3 for phase 17)
 PAIR_XE_ARGS = ["--dtype", "float32", "--batch_size", "128", "--seq_per_img", "4"]  # B = 512
 PAIR_RL_ARGS = ["--dtype", "float32", "--batch_size", "64", "--seq_per_img", "4"]  # B = 256
 PAIR_FLEET_ARGS = ["--dtype", "bfloat16", "--batch_size", "100", "--seq_per_img", "5",
@@ -5666,6 +5689,185 @@ def phase16(torch, aa, model, card, counters, solo_rate):
     return out, rows
 
 
+# ------------------------------------------------ 17. the full-pipeline proxy
+
+PROXY_SEEDS = 2  # the root pipeline_proxy.py's default fleet, at its --quick depth
+PROXY_HID = 96  # pipeline_proxy.build_corpus's rnn / att_hid width
+# phase 17's runs, the top-level calls of pipeline_proxy.main they time
+PROXY_RUNS = {"proxy_xe": "train_multi_seed", "proxy_scst": "train_multi_seed_rl",
+              "proxy_test_cider": "test_cider", "proxy_ensemble": "eval_ensemble"}
+PROXY_GATES = ("rl_ge_xe_all_seeds", "rl_gt_xe_majority", "scst_advantage_improved",
+               "ensemble_gt_single", "rl_params_changed", "rl_gt_xe", "rl_ge_xe")
+
+
+class StepLaunches:
+    """The launches (fwd, bwd) of every call of the proxy's per-step
+    functions, by kind: the XE step, the SCST rollout and step, an eval
+    batch of eval_split and of eval_ensemble (each kernel is queued inside
+    the call that launches it, so the counters' change across a call is
+    its launches)."""
+
+    def __init__(self, counters):
+        self.counters, self.calls = counters, {}
+
+    def _now(self):
+        return (sum(c.launches for c in self.counters),
+                sum(c.bwd_launches for c in self.counters))
+
+    def wrap(self, kind, fn):
+        def call(*a, **kw):
+            f0, b0 = self._now()
+            out = fn(*a, **kw)
+            f1, b1 = self._now()
+            self.calls.setdefault(kind, []).append((f1 - f0, b1 - b0))
+            return out
+
+        return call
+
+    def patches(self):
+        """The patches that wrap the fleets' step makers and both eval
+        loops' dispatch."""
+        from unittest import mock
+
+        from recurrent_fusion_network_torch.training import eval_ensemble, eval_split
+        from recurrent_fusion_network_torch.training import multi_seed
+
+        make_step, make_rollout = multi_seed.make_train_step, multi_seed.make_rollout_fn
+        make_rl_step = multi_seed.make_rl_step
+
+        def rl_step(*a, **kw):
+            step, old = make_rl_step(*a, **kw)
+            return self.wrap("rl_step", step), old
+
+        def dispatching(module, kind):
+            real = module.pipelined_map
+            return lambda fn, items, **kw: real(self.wrap(kind, fn), items, **kw)
+
+        return [mock.patch.object(multi_seed, "make_train_step",
+                                  lambda *a, **kw: self.wrap("xe_step", make_step(*a, **kw))),
+                mock.patch.object(multi_seed, "make_rollout_fn",
+                                  lambda *a, **kw: self.wrap("rollout", make_rollout(*a, **kw))),
+                mock.patch.object(multi_seed, "make_rl_step", rl_step),
+                mock.patch.object(eval_split, "pipelined_map",
+                                  dispatching(eval_split, "eval_batch")),
+                mock.patch.object(eval_ensemble, "pipelined_map",
+                                  dispatching(eval_ensemble, "ensemble_batch"))]
+
+
+def proxy_launches(model, members):
+    """(fwd, bwd) launches of one call of each kind, from the model's
+    shape: an encode reads M x S0 (stage I) + S (stage II); a teacher-forced
+    forward decodes L + 1 steps, a greedy decode or the rollout (its 2B
+    lanes in one pass) L + 1; an eval batch is the loss's forward and the
+    greedy decode, an ensemble batch each member's greedy decode."""
+    enc = model.num_feat_array * model.num_review_steps_0 + model.num_review_steps
+    step = enc + model.seq_length + 1
+    return {"xe_step": (step, step), "rollout": (step, 0), "rl_step": (step, step),
+            "eval_batch": (2 * step, 0), "ensemble_batch": (members * step, 0)}
+
+
+def phase17(torch, aa, card, counters):
+    """Phase 17: the root pipeline_proxy.py's chain on the port, python -m
+    recurrent_fusion_network_torch.pipeline_proxy --quick (PROXY_SEEDS
+    seeds, the default untied profile) in this process: an XE fleet, an
+    SCST fleet from its best triples, the per-seed test CIDEr, the ensemble
+    of the rl_ best triples. The launches of every XE step, SCST rollout and
+    step and eval batch, each as the model's shape says, adding up to the
+    run's; every launch's shape checked against the plain versions; finite
+    CIDEr fields, SCST's params moved, the -best and rl_-best triples in
+    place; the ordering gates printed as they came out (--quick asserts
+    none); the wall seconds by part. -> (results, forward rows, backward
+    rows)."""
+    import tempfile
+    from unittest import mock
+
+    from recurrent_fusion_network_torch import pipeline_proxy
+
+    t0 = time.perf_counter()
+    recorder, steps = ShapeRecorder(aa, hid=PROXY_HID), StepLaunches(counters)
+    wall, models = {run: 0.0 for run in PROXY_RUNS}, []
+
+    def timed(run, fn):
+        def call(*a, **kw):
+            t1 = time.perf_counter()
+            with recorder.run(run):
+                out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            wall[run] += time.perf_counter() - t1
+            if run == "proxy_xe":
+                models.append(out["model"])
+            return out
+
+        return call
+
+    root = tempfile.mkdtemp(prefix="proxy_", dir=os.path.join(REPO, "build"))
+    try:
+        work, out_json = os.path.join(root, "work"), os.path.join(root, "proxy.json")
+        with contextlib.ExitStack() as stack:
+            for p in steps.patches() + [
+                    mock.patch.object(pipeline_proxy, name, timed(run, getattr(pipeline_proxy,
+                                                                               name)))
+                    for run, name in PROXY_RUNS.items()]:
+                stack.enter_context(p)
+            torch.cuda.synchronize()
+            reset_counters(counters)
+            t1 = time.perf_counter()
+            pipeline_proxy.main(["--quick", "--seeds", str(PROXY_SEEDS), "--device", DEVICE,
+                                 "--work_dir", work, "--out", out_json])
+            torch.cuda.synchronize()
+            wall["main"] = time.perf_counter() - t1
+        total = read_counters(counters, "proxy")
+        with open(out_json) as f:
+            written = json.load(f)
+        files = set(os.listdir(work))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    expect = proxy_launches(models[0], PROXY_SEEDS)
+    per_kind = {}
+    for kind, calls in steps.calls.items():
+        if set(calls) != {expect[kind]}:
+            raise AssertionError(f"proxy: {kind} launches {sorted(set(calls))}, expected "
+                                 f"{expect[kind]} a call")
+        per_kind[kind] = dict(calls=len(calls), launches_per_call=expect[kind])
+    summed = tuple(sum(n[i] for calls in steps.calls.values() for n in calls) for i in (0, 1))
+    by_run = {run: recorder.totals(run) for run in PROXY_RUNS}
+    if summed != total or tuple(map(sum, zip(*by_run.values()))) != total \
+            or set(per_kind) != set(expect):
+        raise AssertionError(f"proxy: the calls' launches {summed} (kinds {sorted(per_kind)}) "
+                             f"and the runs' {by_run} do not add up to the run's {total}")
+    ciders = written["xe_test_cider"] + written["rl_test_cider"] + [
+        written["ensemble_test_cider"]] + written["xe_val_best_per_seed"] + written[
+        "rl_val_best_per_seed"]
+    if not all(isinstance(c, float) and math.isfinite(c) for c in ciders) \
+            or not written["rl_params_changed"] or written["card"] != card \
+            or written["tied_att_keys"] or not written["quick"]:
+        raise AssertionError(f"proxy: the result {written}")
+    best = {f"{prefix}{kind}_proxy_{r}-best.pkl" for prefix in ("", "rl_")
+            for kind in ("model", "optimizer", "infos") for r in range(PROXY_SEEDS)}
+    if not best <= files:
+        raise AssertionError(f"proxy: triples missing {sorted(best - files)}")
+    gates = {g: written[g] for g in PROXY_GATES}
+    log(f"proxy: XE test CIDEr {written['xe_test_cider']}, RL {written['rl_test_cider']}, "
+        f"ensemble {written['ensemble_test_cider']}; SCST advantage "
+        f"{written['scst_advantage']}; gates as they came out (--quick asserts none): {gates}")
+    log(f"proxy: launches (fwd, bwd) {total}, by run {by_run}, per call {per_kind}")
+
+    t1 = time.perf_counter()
+    rows, bwd_rows = check_driver_sites(torch, aa, recorder, {"proxy": tuple(PROXY_RUNS)})
+    shape_s = time.perf_counter() - t1
+    out = dict(result={k: v for k, v in written.items() if k != "rl_xe_delta_ci_per_seed"},
+               delta_ci=written["rl_xe_delta_ci_per_seed"], gates=gates, per_call=per_kind,
+               launches=by_run, wall_s={k: round(v, 2) for k, v in wall.items()},
+               shape_check_s=shape_s, seconds=time.perf_counter() - t0)
+    log(f"proxy: phase 17 in {out['seconds']:.2f} s: main {wall['main']:.2f} s, of it XE fleet "
+        f"{wall['proxy_xe']:.2f}, SCST fleet {wall['proxy_scst']:.2f}, test CIDEr "
+        f"{wall['proxy_test_cider']:.2f}, ensemble {wall['proxy_ensemble']:.2f}; "
+        f"{len(recorder.fwd)} forward and {len(recorder.bwd)} backward shapes (H = "
+        f"{PROXY_HID}) checked against the plain versions in {shape_s:.2f} s; {card}")
+    return out, rows, bwd_rows
+
+
 def path_sums(site_rows, path):
     """ms, plain_ms and bound_ms summed over the launches of one path (one
     beam-3 batch, one train step or one SCST iteration), and bound / ms of
@@ -5876,6 +6078,21 @@ def main():
         raise AssertionError("phase 16: the checked sites do not add up to its launches")
     torch.cuda.empty_cache()
 
+    # ---- 17. the full-pipeline proxy: XE fleet -> SCST fleet -> ensemble on
+    # the learnable corpus
+    p17, p17_rows, p17_bwd_rows = phase17(torch, aa, card, [aa])
+    p17_launches = p17.pop("launches")
+    p17_fwd = sum(f for f, _ in p17_launches.values())
+    p17_bwd = sum(b for _, b in p17_launches.values())
+    p17_fwd_sums = {run: dict(path_sums(p17_rows, run), dtype="float32")
+                    for run, (f, _) in p17_launches.items() if f}
+    p17_bwd_sums = {run: dict(path_sums(p17_bwd_rows, run), dtype="float32")
+                    for run, (_, b) in p17_launches.items() if b}
+    if any(p17_fwd_sums[r]["launches"] != f for r, (f, _) in p17_launches.items() if f) or any(
+            p17_bwd_sums[r]["launches"] != b for r, (_, b) in p17_launches.items() if b):
+        raise AssertionError("phase 17: the checked sites do not add up to its launches")
+    torch.cuda.empty_cache()
+
     # both kernels against their plain versions at every shape of phases 8,
     # 10, 11 and 15's runs
     t0 = time.perf_counter()
@@ -5948,9 +6165,10 @@ def main():
         if (remat_fwd[p]["launches"] * steps, remat_bwd[p]["launches"] * steps) \
                 != p11_launches[p]:
             raise AssertionError(f"{p}: the train sites do not add up to phase 11's launches")
-    rows = rows + scst_rows + drv_rows + rn_rows + raw_rows + p13_rows + p14_rows + p16_rows
+    rows = rows + scst_rows + drv_rows + rn_rows + raw_rows + p13_rows + p14_rows + p16_rows \
+        + p17_rows
     bwd_rows = bwd_rows + scst_bwd_rows + drv_bwd_rows + rn_bwd_rows + p13_bwd_rows \
-        + p14_bwd_rows
+        + p14_bwd_rows + p17_bwd_rows
     kernels = [{
         "name": "additive_attention_fwd",
         "route": "cuda",
@@ -5959,7 +6177,7 @@ def main():
         "launches": launches["additive_attention"]
         + trained["launches"]["additive_attention_fwd"]
         + scst_launches["additive_attention_fwd"] + driver_fwd + sum(model_fwd.values())
-        + fleet_fwd + p11_fwd + p12_fwd + p13_fwd + p14_fwd + p15_fwd + p16_fwd,
+        + fleet_fwd + p11_fwd + p12_fwd + p13_fwd + p14_fwd + p15_fwd + p16_fwd + p17_fwd,
         # "eval": the eval CLI's run (one batch of 100 test images);
         # "drivers": all of phase 8's CLI runs, their eval batches included;
         # "<model>_<path>": phase 9's HTTP serving, XE and SCST runs;
@@ -5977,7 +6195,8 @@ def main():
                              **{run: f for run, (f, _) in p13_launches.items()},
                              **{run: f for run, (f, _) in p14_launches.items()},
                              **{run: f for run, (f, _) in p15_launches.items()},
-                             **{run: f for run, (f, _) in p16_launches.items()}},
+                             **{run: f for run, (f, _) in p16_launches.items()},
+                             **{run: f for run, (f, _) in p17_launches.items()}},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         # per beam-3 bf16 batch at B = 512: the sum over its 64 launches
         "ms": serve["ms"],
@@ -5997,11 +6216,13 @@ def main():
         # 16 images of ReviewNet on the resnet grid (24 launches), in eval
         # --image_folder and /caption_image alike; phase 13: over each whole
         # run (the two front ends' 64 requests, one greedy-baseline reward,
-        # each stage of the runbook's dry run)
+        # each stage of the runbook's dry run); phase 17: over each part of
+        # the proxy's run (the XE fleet, the SCST fleet, each with its evals,
+        # the test CIDEr of every seed's two best triples, the ensemble)
         "by_path": {"serve": serve, "train": train_fwd, "scst": scst_fwd, "eval": eval_fwd,
                     "drivers": drivers_fwd, **rn_fwd, **fleet_fwd_sums, **remat_fwd,
                     **front_fwd, "raw_image_batch": raw_batch, **p13_fwd_sums,
-                    **p14_fwd_sums, **p15_fwd_sums, **p16_sums},
+                    **p14_fwd_sums, **p15_fwd_sums, **p16_sums, **p17_fwd_sums},
         "ok": all(r["ok"] and r["bitwise_repeat"] for r in rows),
         "sites": rows,
     }, {
@@ -6012,7 +6233,7 @@ def main():
         "replaces": "recurrent_fusion_network_tpu/ops/attention.py:46",
         "launches": trained["launches"]["additive_attention_bwd"]
         + scst_launches["additive_attention_bwd"] + driver_bwd + sum(model_bwd.values())
-        + fleet_bwd + p11_bwd + p13_bwd + p14_bwd + p15_bwd,
+        + fleet_bwd + p11_bwd + p13_bwd + p14_bwd + p15_bwd + p17_bwd,
         "launches_by_path": {"train": trained["launches"]["additive_attention_bwd"],
                              "scst": scst_launches["additive_attention_bwd"],
                              "drivers": driver_bwd, **model_bwd,
@@ -6021,7 +6242,8 @@ def main():
                              **{run: b for run, (_, b) in p11_launches.items()},
                              **{run: b for run, (_, b) in p13_launches.items() if b},
                              **{run: b for run, (_, b) in p14_launches.items() if b},
-                             **{run: b for run, (_, b) in p15_launches.items() if b}},
+                             **{run: b for run, (_, b) in p15_launches.items() if b},
+                             **{run: b for run, (_, b) in p17_launches.items() if b}},
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
         # errors relative to the largest plain value of each output
         "max_rel_err": max(r["max_rel_err"] for r in bwd_rows),
@@ -6031,7 +6253,7 @@ def main():
         "bound_ms": train_bwd["bound_ms"],
         "by_path": {"train": train_bwd, "scst": scst_bwd, "drivers": drivers_bwd, **rn_bwd,
                     **fleet_bwd_sums, **remat_bwd, **front_bwd, **p13_bwd_sums,
-                    **p14_bwd_sums, **p15_bwd_sums},
+                    **p14_bwd_sums, **p15_bwd_sums, **p17_bwd_sums},
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in bwd16) else "operations",
         "library_ms": None,  # no single PyTorch call computes its gradient
         "ok": all(r["ok"] and r["bitwise_repeat"] for r in bwd_rows),
@@ -6052,6 +6274,7 @@ def main():
     log("phase 14 summary: " + json.dumps(p14))
     log("phase 15 summary: " + json.dumps(p15))
     log("phase 16 summary: " + json.dumps(p16))
+    log("phase 17 summary: " + json.dumps(p17))
     for k in kernels:
         for path, sums in k["by_path"].items():
             log(f"kernel {k['name']} per {sums['dtype']} {path} path ({sums['launches']} "

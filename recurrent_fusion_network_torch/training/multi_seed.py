@@ -30,7 +30,9 @@ captions from the state its solo run would find. The fleet stops early once ever
 never beats its warm-start score ships that triple's weights and moments
 as its ``rl_``-best, so the ``rl_`` ensemble is complete. (The JAX SCST
 fleet counts a warm start's iterations from 0; the port's, as both solo
-loops, from the XE triple's ``iter``.)
+loops, from the XE triple's ``iter``. Its reward history starts empty, as
+JAX's does, where the solo loops carry on the XE triple's loss history.)
+Both fleets' dicts hold the JAX fleets' keys (``Fleet.result``).
 
 Triples go through ``checkpoint.backend(opt)`` (pickle, or DCP directories
 under ``--checkpoint_backend orbax``); an SCST fleet with --spice_weight > 0
@@ -55,10 +57,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..convert import params_from_jax
 from ..data.pinned import device_batch
 from ..device import resolve_device
 from ..metrics.spice import make_spice_fn
 from ..models import setup
+from ..ops.initializers import tree_leaves, tree_map
 from ..parallel.distributed import all_hosts_agree
 from ..parallel.mesh import MP_FLEET
 from ..rewards.self_critical import compute_reward
@@ -85,6 +89,7 @@ class Seed:
         self.rl_lr_base = self.lr = rl_lr_base
         self.best_written = False  # a -best triple written by this run
         self.ship_xe = False  # ships the XE best triple if it never improves
+        self.best_params = None  # the params of its best eval, on the host
 
 
 class Fleet:
@@ -107,8 +112,8 @@ class Fleet:
         """Every seed's val eval at the params after step ``last_step``
         (recorded under ``at_iter``); with ``rolling`` its rolling triple,
         and where it improved its -best one (a hard link to the rolling
-        files, or written itself without ``rolling``). -> whether every
-        seed is stagnant."""
+        files, or written itself without ``rolling``) and its
+        ``best_params``. -> whether every seed is stagnant."""
         eval_s = save_s = 0.0
         scores = []
         # every seed's eval draws the val captions (the loss's labels) from
@@ -120,11 +125,14 @@ class Fleet:
                                                     at_iter)
             eval_s += secs
             scores.append(seed.bounds.best_val_score)
-            if not self.save or not (best or rolling):
-                continue
+            write = self.save and (best or rolling)
             t0 = time.time()
-            seed.bounds.write(to_host(seed.params, seed.opt_state, self.opt),
-                              self.snapshot(seed, last_step, epoch, **histories(seed)),
+            host = to_host(seed.params, seed.opt_state, self.opt) if write else None
+            if best:
+                seed.best_params = host_params(seed.params, host)
+            if not write:
+                continue
+            seed.bounds.write(host, self.snapshot(seed, last_step, epoch, **histories(seed)),
                               best=best, rolling=rolling)
             seed.best_written = seed.best_written or best
             save_s += time.time() - t0
@@ -170,14 +178,35 @@ class Fleet:
                                              for s in self.seeds)):
             self.evaluate(iteration, iteration - 1, epoch, histories, rolling=False)
 
-    def result(self, iteration, epoch, preempted, **extra):
+    def result(self, iteration, epoch, preempted, n_seeds, histories="loss_histories",
+               **extra):
+        """The fleet's dict. The per-seed lists hold this process's seeds in
+        order, but ``best_params``, which is ``n_seeds`` long and indexed by
+        seed (None for another rank's seeds), as JAX's; ``local_seeds``
+        (= ``ranks``) names them. ``histories``: the key of the logged
+        per-seed values (the JAX SCST fleet's is reward_histories)."""
+        best_params = [None] * n_seeds
+        for s in self.seeds:
+            best_params[s.rank] = s.best_params
         return dict(iter=iteration, epoch=epoch, model=self.model, preempted=preempted,
-                    ranks=self.ranks,
+                    ranks=self.ranks, local_seeds=list(self.ranks),
                     params=[s.params for s in self.seeds],
                     opt_states=[s.opt_state for s in self.seeds],
-                    loss_histories=[s.loss_history for s in self.seeds],
+                    best_params=best_params,
                     val_histories=[s.bounds.val_result_history for s in self.seeds],
-                    cider_per_seed=[s.bounds.best_val_score for s in self.seeds], **extra)
+                    cider_per_seed=[s.bounds.best_val_score for s in self.seeds],
+                    **{histories: [s.loss_history for s in self.seeds]}, **extra)
+
+
+def host_params(params, host):
+    """A seed's params on the host as a tensor tree, at an improvement:
+    the arrays of the triple's ``to_host`` copy where it was made off a
+    card (no second copy from the device); on the CPU, or without a
+    triple, a copy of their own (the step updates the params in place, and
+    on the CPU ``to_host`` gives views of them)."""
+    if host is not None and tree_leaves(params)[0].device.type != "cpu":
+        return tree_map(torch.from_numpy, host[0])
+    return tree_map(lambda t: t.detach().to("cpu", copy=True), params)
 
 
 def local_seeds(opt, n_seeds: int, mesh=None) -> range:
@@ -213,10 +242,12 @@ def train_multi_seed(opt, loader, n_seeds: int, *, max_iterations: Optional[int]
     the generator seeded with opt.seed + r, or with ``opt.start_from``
     resumed from its rolling triple ``model_{load_model_id}_{r}``. Returns
     a dict: iter, epoch, model, preempted, and per seed params, opt_states,
-    loss_histories, val_histories, cider_per_seed (the best score), with
-    the shared lr_history and ss_prob_history. With a data-parallel
-    ``mesh`` this rank trains its block of the seeds (``local_seeds``),
-    and the per-seed lists (and ``ranks``) are its seeds'."""
+    loss_histories, val_histories, cider_per_seed (the best score) and
+    best_params (the params of that eval, on the host; None for a seed
+    never scored), with the shared lr_history and ss_prob_history. With a
+    data-parallel ``mesh`` this rank trains its block of the seeds
+    (``local_seeds``), and the per-seed lists (and ``ranks``) are its
+    seeds' (``Fleet.result``)."""
     device = resolve_device(opt.device)
     opt.vocab_size = loader.vocab_size
     opt.seq_length = loader.seq_length
@@ -279,7 +310,7 @@ def train_multi_seed(opt, loader, n_seeds: int, *, max_iterations: Optional[int]
         jlog.close()
         guard.close()
     backend(opt).wait_until_finished()  # async barrier
-    return fleet.result(iteration, epoch, preempted, lr_history=lr_history,
+    return fleet.result(iteration, epoch, preempted, n_seeds, lr_history=lr_history,
                         ss_prob_history=ss_prob_history)
 
 
@@ -294,9 +325,12 @@ def train_multi_seed_rl(opt, loader, cider_scorer, n_seeds: int, *,
     or drawn from its generator. Each iteration: one batch copy, each
     seed's fused sampled+greedy rollout, its host CIDEr-D reward, its
     policy-gradient step. Returns the dict of ``train_multi_seed`` with
-    loss_histories the mean rewards (as the solo loop records them), and
-    per seed train_loss_histories, lr_histories and rl_lr_bases. ``mesh``:
-    the fleet over ranks, as in ``train_multi_seed``."""
+    reward_histories (the mean rewards, which the solo loop records as its
+    loss_history) in place of loss_histories, and per seed
+    train_loss_histories, lr_histories and rl_lr_bases; a warm-started seed
+    that never beat its warm-start score has the XE best triple's params as
+    its best_params, as in JAX. ``mesh``: the fleet over ranks, as in
+    ``train_multi_seed``."""
     device = resolve_device(opt.device)
     opt.vocab_size = loader.vocab_size
     opt.seq_length = loader.seq_length
@@ -311,6 +345,10 @@ def train_multi_seed_rl(opt, loader, cider_scorer, n_seeds: int, *,
         seed = Seed(r, params, opt_state, generator,
                     Boundaries(opt, r, infos, prefix="rl_", resume_count=rl_resume), infos,
                     rl_lr_base=base)
+        if opt.start_from is not None and not rl_resume:
+            # a warm start's rewards begin empty, not with the XE triple's
+            # losses (JAX multi_seed.py:740; the solo loops keep them)
+            seed.loss_history = {}
         # the XE best triple this seed ships if it never beats its score: a
         # warm start's, or under --rl_resume the XE -best beside the rl_
         # triples where this run has no rl_-best yet (a fleet never
@@ -395,7 +433,13 @@ def train_multi_seed_rl(opt, loader, cider_scorer, n_seeds: int, *,
         jlog.close()
         guard.close()
     ckpt.wait_until_finished()  # async barrier
-    return fleet.result(iteration, epoch, preempted,
+    for seed in seeds:
+        if seed.ship_xe and seed.best_params is None:
+            # never beat its warm start: the XE best triple is its best
+            # (JAX multi_seed.py:742), read back from the disk
+            seed.best_params = params_from_jax(ckpt.load_checkpoint(
+                opt.start_from, opt.load_model_id, seed.rank, best=True)[0])
+    return fleet.result(iteration, epoch, preempted, n_seeds, histories="reward_histories",
                         train_loss_histories=[s.train_loss_history for s in seeds],
                         lr_histories=[s.lr_history for s in seeds],
                         rl_lr_bases=[s.rl_lr_base for s in seeds])

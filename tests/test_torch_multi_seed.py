@@ -138,9 +138,9 @@ def test_scst_fleet_seed_is_the_solo_run_bit_for_bit(tmp_path):
                                      eval_at_end=False, log_fn=quiet)
     topt, tl = _port(tmp_path / "solo", save_checkpoint_every=100)
     solo = t_train_rl(topt, tl, _scorer(tl), rank=1, max_iterations=3, log_fn=quiet)
-    assert fleet["loss_histories"][1] == solo["loss_history"]
+    assert fleet["reward_histories"][1] == solo["loss_history"]
     assert fleet["train_loss_histories"][1] == solo["train_loss_history"]
-    assert fleet["loss_histories"][0] != solo["loss_history"]
+    assert fleet["reward_histories"][0] != solo["loss_history"]
     _assert_trees_equal(fleet["params"][1], solo["final_params"])
 
 
@@ -224,12 +224,66 @@ def test_scst_fleet_matches_the_jax_fleet(tmp_path, monkeypatch):
     t = t_ms.train_multi_seed_rl(topt, tl, _scorer(tl), 2, max_iterations=3,
                                  eval_at_end=False, save=False, log_fn=quiet)
     for r in range(2):
-        got, want = t["loss_histories"][r], j["reward_histories"][r]
+        got, want = t["reward_histories"][r], j["reward_histories"][r]
         assert sorted(got) == sorted(want) == [0, 1, 2]
         np.testing.assert_allclose([got[i] for i in range(3)], [want[i] for i in range(3)],
                                    rtol=RTOL)
         assert any(v > 0 for v in got.values())
     _assert_fleet_params_close(j["params"], t["params"])
+
+
+def _assert_best_params_are_the_triples(res, ck, run_id, prefix=""):
+    for r in range(2):
+        saved, _ = t_ckpt.load_checkpoint(ck, run_id, r, best=True, prefix=prefix)
+        got = jax.tree_util.tree_leaves(res["best_params"][r])
+        want = jax.tree_util.tree_leaves(saved)
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            assert a.device.type == "cpu"
+            np.testing.assert_array_equal(a.numpy(), b)
+
+
+def test_fleet_results_hold_the_jax_keys(tmp_path, monkeypatch):
+    """Both fleets' dicts hold every key of the JAX fleets' (best_params and
+    local_seeds; the SCST fleet's reward_histories), on 2 seeds of ShowTell.
+    Each seed's best_params is its -best triple's tree: seed 0 of the XE
+    fleet improves at the boundary at 1 only, so its best differs from its
+    final params; in the SCST fleet seed 1 never beats its warm start and
+    its best_params are the XE best triple's, which it ships."""
+    jopt, topt, jl, tl = _setups(tmp_path, caption_model="show_tell",
+                                 save_checkpoint_every=1)
+    j_ck, t_ck = str(tmp_path / "jax"), str(tmp_path / "port")
+    jopt.checkpoint_path, topt.checkpoint_path, jopt.id, topt.id = j_ck, t_ck, "f", "f"
+    j_xe = j_ms.train_multi_seed(jopt, jl, 2, max_iterations=2, log_fn=quiet)
+    with monkeypatch.context() as m:
+        _scores(m, {0: [0.5, 0.4, 0.3], 1: [0.5, 0.7, 0.9]})
+        t_xe = t_ms.train_multi_seed(topt, tl, 2, max_iterations=3, log_fn=quiet)
+    assert set(j_xe) <= set(t_xe), set(j_xe) - set(t_xe)
+    assert t_xe["local_seeds"] == j_xe["local_seeds"] == [0, 1]
+    assert t_xe["cider_per_seed"] == [0.5, 0.9]
+    _assert_best_params_are_the_triples(t_xe, t_ck, "f")
+    assert not torch.equal(t_xe["best_params"][0]["embed"], t_xe["params"][0]["embed"])
+    assert torch.equal(t_xe["best_params"][1]["embed"], t_xe["params"][1]["embed"])
+
+    _, topt, _, tl = _setups(tmp_path, caption_model="show_tell", save_checkpoint_every=1)
+    for opt, ck in ((jopt, j_ck), (topt, t_ck)):
+        opt.checkpoint_path, opt.id, opt.start_from, opt.load_model_id = ck, "f", ck, "f"
+    j_rl = j_ms.train_multi_seed_rl(jopt, jl, _jax_scorer(jl), 2, max_iterations=1,
+                                    log_fn=quiet)
+    with monkeypatch.context() as m:
+        _scores(m, {0: [0.6], 1: [0.1]})
+        t_rl = t_ms.train_multi_seed_rl(topt, tl, _scorer(tl), 2, max_iterations=2,
+                                        log_fn=quiet)
+    assert set(j_rl) <= set(t_rl), set(j_rl) - set(t_rl)
+    # the warm start continues seed 0's XE triple (iter 2) for one SCST
+    # iteration; as in JAX (which counts from 0) the rewards start empty
+    assert "loss_histories" not in t_rl and t_rl["iter"] == 3
+    assert [sorted(h) for h in t_rl["reward_histories"]] == [[2], [2]]
+    assert [sorted(h) for h in j_rl["reward_histories"]] == [[0], [0]]
+    assert t_rl["cider_per_seed"] == [0.6, 0.9]
+    _assert_best_params_are_the_triples(t_rl, t_ck, "f", prefix="rl_")
+    xe_best, _ = t_ckpt.load_checkpoint(t_ck, "f", 1, best=True)
+    np.testing.assert_array_equal(t_rl["best_params"][1]["embed"].numpy(), xe_best["embed"])
 
 
 # --------------------------------------------------------------- the files
@@ -329,7 +383,7 @@ def test_preempted_scst_fleet_resumes_as_a_fleet(tmp_path, monkeypatch):
     topt.checkpoint_path = str(tmp_path / "resumed")
     resumed = t_ms.train_multi_seed_rl(topt, tl, _scorer(tl), 2, max_iterations=4,
                                        eval_at_end=False, save=False, log_fn=quiet)
-    assert resumed["loss_histories"] == whole["loss_histories"]
+    assert resumed["reward_histories"] == whole["reward_histories"]
     assert resumed["train_loss_histories"][0] == {
         k: v for k, v in whole["train_loss_histories"][0].items() if k >= 2}
     for r in range(2):

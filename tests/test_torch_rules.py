@@ -19,6 +19,7 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 assert {pkg.__name__ + ".parallel." + m for m in ("distributed", "mesh")} <= set(names), names
+assert pkg.__name__ + ".pipeline_proxy" in names, names
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "recurrent_fusion_network_tpu"))
@@ -56,7 +57,7 @@ def _tiny_model():
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda, tmp_path):
     from recurrent_fusion_network_torch.config import Options
     from recurrent_fusion_network_torch import eval as eval_cli
-    from recurrent_fusion_network_torch import eval_ensemble, main, main_rl, serve
+    from recurrent_fusion_network_torch import eval_ensemble, main, main_rl, pipeline_proxy, serve
     from recurrent_fusion_network_torch.decoding.http_serve import CaptionService
     from recurrent_fusion_network_torch.decoding.serve import CaptionServer
     from recurrent_fusion_network_torch.device import resolve_device
@@ -86,6 +87,9 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda, tmp_path):
         # the fleets themselves, before the (unread) loader is touched
         lambda: train_multi_seed(Options(), None, 2),
         lambda: train_multi_seed_rl(Options(), None, None, 2),
+        # before the corpus is built
+        lambda: pipeline_proxy.main(["--quick", "--work_dir", str(tmp_path),
+                                     "--out", str(tmp_path / "proxy.json")]),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()

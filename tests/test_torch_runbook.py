@@ -34,7 +34,13 @@ def _read(path):
         return f.read()
 
 
-@pytest.mark.parametrize("name", ("run_coco.sh",) + FLEET_SCRIPTS)
+RECIPES = {"eval_single.sh": "eval", "eval_ensemble.sh": "eval_ensemble",
+           "train_review_net.sh": "main", "train_review_net_rl.sh": "main_rl",
+           "train_single_recurrent_fusion_model.sh": "main",
+           "train_single_recurrent_fusion_model_rl.sh": "main_rl"}
+
+
+@pytest.mark.parametrize("name", ("run_coco.sh",) + FLEET_SCRIPTS + tuple(sorted(RECIPES)))
 def test_bash_syntax_and_pipefail(name):
     subprocess.run(["bash", "-n", os.path.join(SCRIPTS, name)], check=True, timeout=60)
     text = _read(os.path.join(SCRIPTS, name))
@@ -179,3 +185,92 @@ def test_real_run_with_two_fleet_devices_raises_m10_and_resumes_pkl_triples(tmp_
     assert xe[i + 1:i + 4] == ["checkpoint", "--load_model_id", run_id]
     _, (_, ens) = _parse(calls[3])
     assert ens.dtype == "bfloat16"
+
+
+# ------------------------------------------------ the recipes beside the runbook
+
+RECORDER = """#!{python}
+import json, os, sys
+with open(os.environ["SHIM_LOG"], "a") as f:
+    f.write(json.dumps(sys.argv[1:]) + "\\n")
+"""
+# each root CLI's own flags, parsed before parse_opt (eval.py:74-79,
+# eval_ensemble.py:26-37, main_rl.py:20-22)
+ROOT_PRE = {"eval": (("--rl_prefix", int, 0), ("--rank", int, 0)),
+            "eval_ensemble": (("--model_ids", str, None), ("--n_ranks", int, 1),
+                              ("--rl_prefix", int, 0), ("--diff_feat", int, 0)),
+            "main": (), "main_rl": (("--cider_df", str, "data/coco-train-idxs.p"),)}
+RECIPE_ENV = {"ID": "r7", "SEED": "3", "FEATURE": "resnet", "SPLIT": "val", "BEAM": "2",
+              "MODEL_IDS": "a,b:1", "RL": "0", "FLIP": "1"}
+
+
+def _recorded(tmp, script, cwd, env):
+    """The one command ``script`` issues, run with a recording interpreter
+    as ``python`` on PATH and as $PYTHON."""
+    bindir = tmp / "bin"
+    bindir.mkdir(exist_ok=True)
+    shim = bindir / "python"
+    shim.write_text(RECORDER.format(python=sys.executable))
+    shim.chmod(shim.stat().st_mode | stat.S_IEXEC)
+    log = tmp / f"argv_{uuid.uuid4().hex[:8]}.jsonl"
+    cwd.mkdir()
+    base = {k: v for k, v in os.environ.items() if k not in RECIPE_ENV}
+    subprocess.run(["bash", script], cwd=cwd, check=True, timeout=120,
+                   env={**base, **env, "PATH": f"{bindir}{os.pathsep}{os.environ['PATH']}",
+                        "PYTHON": str(shim), "SHIM_LOG": str(log)})
+    with open(log) as f:
+        calls = [json.loads(line) for line in f]
+    assert len(calls) == 1, calls
+    return calls[0]
+
+
+def _options(pre_flags, parse_opt, argv):
+    """{flag: value} of one command: the CLI's own flags and parse_opt's."""
+    import argparse
+
+    pre = argparse.ArgumentParser(add_help=False)
+    for flag, kind, default in pre_flags:
+        pre.add_argument(flag, type=kind, default=default)
+    pre_args, rest = pre.parse_known_args(argv)
+    return {**vars(parse_opt(rest)), **vars(pre_args)}
+
+
+def _comparable(value):
+    if isinstance(value, (list, tuple)):
+        return [_comparable(v) for v in value]
+    if hasattr(value, "keys"):  # EncoderInfo of either package
+        return {k: _comparable(value[k]) for k in value.keys()}
+    return value
+
+
+@pytest.mark.parametrize("env", ({}, RECIPE_ENV), ids=("defaults", "env"))
+@pytest.mark.parametrize("name", sorted(RECIPES))
+def test_recipe_parses_as_the_root_recipe(name, env, tmp_path):
+    """The port's recipe issues its CLI as ``$PYTHON -m
+    recurrent_fusion_network_torch.<cli>``; parsed by the port's parser
+    (parse_opt, the CLIs' own flags) it gives every option the JAX parser
+    gives the root recipe's command, with the same variables set."""
+    from recurrent_fusion_network_torch import config as t_config
+    from recurrent_fusion_network_tpu import config as j_config
+
+    cli = RECIPES[name]
+    root = _recorded(tmp_path, os.path.join(REPO, "scripts", name), tmp_path / "root", env)
+    port = _recorded(tmp_path, os.path.join(SCRIPTS, name), tmp_path / "port", env)
+    assert root[0] == f"{cli}.py" and port[:2] == ["-m", PORT + cli], (root, port)
+    _, parsed = _parse(port)
+    port_pre, port_opt = parsed if isinstance(parsed, tuple) else (None, parsed)
+    want = _options(ROOT_PRE[cli], j_config.parse_opt, root[1:])
+    got = _options(ROOT_PRE[cli], t_config.parse_opt, port[2:])
+    assert {k: _comparable(got[k]) for k in want} == {k: _comparable(v) for k, v in
+                                                       want.items()}
+    assert vars(port_opt) == {k: v for k, v in got.items() if k in vars(port_opt)}
+    if port_pre is not None:
+        assert vars(port_pre) == {k: got[k] for k in vars(port_pre)}
+    if env:  # the variables reached the command
+        key, value = {"eval": ("load_model_id", "r7"),
+                      "eval_ensemble": ("model_ids", "a,b:1")}.get(cli, ("id", "r7"))
+        assert got[key] == value
+        if cli.startswith("eval"):
+            assert got["beam_size"] == 2
+        else:  # SEED reaches the ReviewNet recipes; the fleet's seeds start at 1
+            assert got["seed"] == (3 if name.startswith("train_review") else 1)
