@@ -113,7 +113,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
               FLEET_SEEDS = 2, cut from 4 to make room for phase 15; bf16,
               100 images x 5, 6 steps, the boundary at 5), main_rl
               --n_seeds S warm-started from its best triples (f32, 51
-              images x 5, iterations 6..11, the boundary at 11),
+              images x 5, iterations 0..5 counted from 0 as the JAX
+              fleet counts, the boundary at 5),
               eval_ensemble --n_ranks S --rl_prefix 1 --beam_size 3 --dtype
               bfloat16 on the test images without, with and again without
               --eval_flip_ensemble 1, and an S-member bf16 B = 512 ensemble
@@ -203,7 +204,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
               process forked by --probe-server after torch's import (each
               command's launches counted by shape in its process):
               ranks 0 and 1 hold their XE and rl_ triples, both eval logs
-              finite metrics, seconds per stage; the run's files deleted.
+              finite metrics, seconds per stage; the SCST fleet counts from
+              0 as the JAX fleet does (4 iterations a seed as the XE fleet's
+              4 steps, 2 x 4 x 65 backward launches each, the rolling rl_
+              triples iter 3 with rewards 0..2); the run's files deleted.
               Every shape of (a)-(c) is checked against the plain versions.
  14. SPICE rewards, orbax checkpoints, the trace window: (a) phase 7's
               SCST (f32, B = 256, 5 references a row, the native CIDEr-D
@@ -235,8 +239,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
               checked against the plain versions.
  15. data parallelism over torch.distributed: on a data set of phase 8's
               shapes (seed 2, written under build/dp_*, deleted when done), (a)
-              the XE CLI (bf16, 100 x 5, steps 0..15, the boundary at 15)
-              and main_rl from its best triple (f32, 51 x 5, 8 iterations)
+              the XE CLI (bf16, 100 x 5, steps 0..9, the boundary at 9)
+              and main_rl from its best triple (f32, 51 x 5, 6 iterations)
               in this process, then both in one process under python -m
               torch.distributed.run --standalone --nproc_per_node 1 (an
               NCCL group of one, joined by each CLI in turn: the gradient
@@ -244,7 +248,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
               --checkpoint_backend orbax), each under the launch probe:
               the losses bit for bit, the DCP triple reading back to the
               solo run's pickle tree leaf for leaf, the step ms of each
-              (median and quartiles of 14 and 6 JSONL gaps); (b) the same
+              (median and quartiles of 8 and 4 JSONL gaps); (b) the same
               global batches in this process and over two gloo ranks
               sharing cuda:0 (parallel.distributed.initialize(
               backend="gloo"), each rank a process of this script under
@@ -296,9 +300,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
               H = 96, A = 10 / 8 / 12, D = 64 / 48 / 56, 4 + 4 review steps,
               10 tokens, f32, the default untied profile) in this process:
               a PROXY_SEEDS = 2 XE fleet (120 steps at 8 images x 5), an
-              SCST fleet from its best triples (40 iterations, train-idf
-              CIDEr-D), each seed's greedy test CIDEr, the ensemble of the
-              rl_ best triples. The counters reset just before and read just
+              SCST fleet from its best triples (40 iterations counted from
+              0, ending at iter 40, train-idf CIDEr-D), each seed's greedy
+              test CIDEr, the ensemble of the rl_ best triples. The
+              counters reset just before and read just
               after: every XE step 27 + 27 launches, every SCST rollout 27 +
               0 and step 27 + 27, every eval batch 54 + 0 and ensemble batch
               2 x 27 + 0, adding up to the run's; none on the scalar path;
@@ -2134,7 +2139,7 @@ def models_sums(rows, bwd_rows, driven):
 
 FLEET_SEEDS = 2  # cut from 4 to make room for phase 15
 FLEET_XE_EVERY = 5  # XE steps 0..5, the boundary at 5 (cut from 10 for time)
-FLEET_RL_ITERS = 6  # SCST iterations from the XE best triples' iter 6, the boundary at 11
+FLEET_RL_ITERS = 6  # SCST iterations 0..5 from the XE best triples, the boundary at 5
 FLEET_FREE_GB = 60  # data set ~2 GB; per seed an XE triple, an rl_ triple and an rl_ best
 ENSEMBLE_TIMED = 4  # B = 512 ensemble batches timed
 PHASE10_RUNS = ("fleet_xe", "fleet_scst", "ensemble_eval", "ensemble_flip",
@@ -2293,7 +2298,7 @@ def fleets(torch, aa, model, card, counters, recorder, solo_rate):
     XE fleet (main --n_seeds FLEET_SEEDS, bf16, 100 images x 5, steps 0..
     FLEET_XE_EVERY, the boundary at the last), the SCST fleet warm-started
     from its best triples (main_rl --n_seeds FLEET_SEEDS, f32, 51 images x
-    5, FLEET_RL_ITERS iterations, the boundary at the last but one), the
+    5, FLEET_RL_ITERS iterations counted from 0, the boundary at the last), the
     ensemble CLI over the rl_ best triples (beam 3, bf16, the 100 test
     images) without, with and again without
     --eval_flip_ensemble 1, and a FLEET_SEEDS-member B = 512 ensemble's
@@ -2379,27 +2384,28 @@ def _fleets(torch, model, card, counters, recorder, root, main_cli, main_rl_cli,
         f"{out['xe']['reckoned_peak_gb_s8']:.2f} GB; {free_gb:.1f} GB free on disk, "
         f"{mem_gb:.1f} GB of host memory available")
 
-    # SCST fleet from the XE best triples (iteration FLEET_XE_EVERY + 1 on):
-    # FLEET_RL_ITERS iterations, the boundary at the last (two eval batches
-    # of 51 images), the epilogue eval after it on the same params
-    last = steps + FLEET_RL_ITERS
+    # SCST fleet from the XE best triples, counted from 0 as the JAX fleet
+    # counts a warm start: iterations 0..FLEET_RL_ITERS - 1, each logged,
+    # the boundary at the last (two eval batches of 51 images), the
+    # epilogue eval after it on the same params
     log_rl = os.path.join(root, "fleet_rl.jsonl")
     res, rl = run_driver(
         torch, main_rl_cli,
         common + ["--batch_size", "51", "--seq_per_img", "5", "--dtype", "float32",
                   "--start_from", ck, "--load_model_id", "fleet",
-                  "--save_checkpoint_every", str(last - 1), "--max_iterations", str(last),
+                  "--save_checkpoint_every", str(FLEET_RL_ITERS - 1),
+                  "--max_iterations", str(FLEET_RL_ITERS), "--losses_log_every", "1",
                   "--json_log", log_rl, "--cider_df", os.path.join(root, "absent.p")],
         counters, (S * (130 * FLEET_RL_ITERS + 2 * 2 * per_eval), S * 65 * FLEET_RL_ITERS),
         "fleets SCST", recorder, "fleet_scst")
     rl_files = sorted(f for f in os.listdir(ck) if f.startswith("rl_"))
-    # the mean rewards of this run's logged iterations (a warm start's
+    # the mean rewards of this run's iterations, keyed 0.. (a warm start's
     # history holds nothing of the XE run's)
     rewards = [[h[i] for i in sorted(h)] for h in res["reward_histories"]]
-    if any(min(h, default=steps) < steps for h in res["reward_histories"]):
-        raise AssertionError(f"fleets SCST: reward histories {res['reward_histories']} hold "
-                             "iterations of the XE run")
-    if rl_files != fleet_files("fleet", S, "rl_") or res["iter"] != last \
+    if [sorted(h) for h in res["reward_histories"]] != [list(range(FLEET_RL_ITERS))] * S:
+        raise AssertionError(f"fleets SCST: reward histories {res['reward_histories']}, "
+                             f"expected the keys 0..{FLEET_RL_ITERS - 1}")
+    if rl_files != fleet_files("fleet", S, "rl_") or res["iter"] != FLEET_RL_ITERS \
             or not all(h and all(map(math.isfinite, h)) for h in rewards):
         raise AssertionError(f"fleets SCST: files {rl_files}, iter {res['iter']}, "
                              f"rewards {rewards}")
@@ -3365,6 +3371,10 @@ SC_REPS = 5  # timed repeats of the greedy-baseline reward and its two parts
 RUNBOOK_FREE_GB = 40  # two seeds' XE and rl_ flagship triples (5.4 GB each) and links
 RUNBOOK_SEEDS = 2
 RUNBOOK_TIMEOUT_S = 900
+# the dry run's --max_iterations and --save_checkpoint_every (run_coco.sh),
+# for the XE fleet and the SCST fleet alike: each runs 4 steps, the
+# boundary at 2, the epilogue eval at 4
+RUNBOOK_ITERS, RUNBOOK_EVERY = 4, 2
 # the dry run, then the runbook resuming at its eval stage from the
 # triples the first run wrote (its STAGES env)
 RUNBOOK_RUNS = (("all", None), ("eval_again", "eval"))
@@ -3847,7 +3857,10 @@ def runbook_phase(torch, card, recorder):
     run_coco.sh (NUM_SEEDS 2, DATA_DIR under build/, a unique ID), every
     stage through the port's CLIs on the card, each run under the launch
     probe; then STAGES=eval again (``RUNBOOK_RUNS``). Ranks 0 and 1 hold
-    their XE and rl_ triples, both eval logs finite metrics; every launch's
+    their XE and rl_ triples, both eval logs finite metrics; the SCST fleet
+    counts from 0 as the JAX fleet does: as many steps as the XE fleet
+    (RUNBOOK_ITERS), its rolling rl_ triples from the boundary at
+    RUNBOOK_EVERY with this run's rewards only; every launch's
     shape goes to ``recorder`` under runbook_<stage>[_again]. The run's
     checkpoint/ and log/ files are deleted."""
     import glob
@@ -3931,6 +3944,7 @@ def runbook_phase(torch, card, recorder):
                            if not os.path.exists(os.path.join(ck, f))]
                 if missing:
                     raise AssertionError(f"runbook: triples missing: {missing}")
+                out["rl_infos"] = runbook_rl_infos(ck, run_id, launches)
             out[run] = dict(wall_s=wall, seconds=seconds, launches=launches, metrics=metrics)
             log(f"runbook {run}: exit 0 in {wall:.2f} s; seconds by stage "
                 + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items())
@@ -3945,6 +3959,35 @@ def runbook_phase(torch, card, recorder):
             os.remove(path)
         shutil.rmtree(root, ignore_errors=True)
     return out
+
+
+def runbook_rl_infos(ck, run_id, launches):
+    """The runbook's SCST fleet counted its warm start from 0: as many
+    backward launches as the XE fleet (RUNBOOK_ITERS steps of each seed),
+    each seed's rolling rl_ triple written at the boundary at RUNBOOK_EVERY
+    (iter RUNBOOK_EVERY + 1, rewards 0..RUNBOOK_EVERY), its rl_-best there
+    or at the epilogue (iter RUNBOOK_ITERS). -> {rank: (rolling iter, best
+    iter)}."""
+    from recurrent_fusion_network_torch.training.checkpoint import load_infos
+
+    bwd = RUNBOOK_SEEDS * RUNBOOK_ITERS * 65
+    if launches["runbook_rl"][1] != bwd or launches["runbook_xe"][1] != bwd:
+        raise AssertionError(f"runbook: backward launches XE {launches['runbook_xe'][1]}, "
+                             f"SCST {launches['runbook_rl'][1]}, expected {bwd} each")
+    iters = {}
+    for rank in range(RUNBOOK_SEEDS):
+        rolling = load_infos(ck, run_id, rank, best=False, prefix="rl_")
+        best = load_infos(ck, run_id, rank, best=True, prefix="rl_")
+        iters[rank] = (rolling.get("iter"), best.get("iter"))
+        rewards = sorted(rolling.get("loss_history", {}))
+        if iters[rank][0] != RUNBOOK_EVERY + 1 \
+                or iters[rank][1] not in (RUNBOOK_EVERY + 1, RUNBOOK_ITERS) \
+                or rewards != list(range(RUNBOOK_EVERY + 1)):
+            raise AssertionError(f"runbook: seed {rank}'s rl_ triples: iter (rolling, best) "
+                                 f"{iters[rank]}, rewards at {rewards}")
+    log(f"runbook: the SCST fleet ran {RUNBOOK_ITERS} iterations a seed from 0; rl_ triples' "
+        f"iter (rolling, best) by seed {iters}")
+    return iters
 
 
 def phase13(torch, aa, model, card, scorer):
@@ -4461,8 +4504,10 @@ PHASE14_RUNS = ("spice_approx", "spice_http", "spice_fleet", "orbax_pickle", "or
 
 DP_FREE_GB = 30  # data set ~1.6 GB; a pickle and a DCP flagship triple (5.4 GB each),
 # two first-step grads files (1.8 GB each) and the pair's preemption triple
-DP_XE_STEPS = 16  # the world-1 XE runs: steps 0..15, the boundary at 15 (14 steady gaps)
-DP_RL_ITERS = 8  # main_rl from the XE best triple: iterations 16..23, no boundary
+# the world-1 XE runs: steps 0..9, the boundary at 9 (8 steady gaps; cut from 16)
+DP_XE_STEPS = 10
+# main_rl from the XE best triple: iterations 10..15, no boundary (cut from 8)
+DP_RL_ITERS = 6
 PAIR_STEPS = 2  # steps or iterations of each gloo-pair run (cut from 3 for phase 17)
 PAIR_XE_ARGS = ["--dtype", "float32", "--batch_size", "128", "--seq_per_img", "4"]  # B = 512
 PAIR_RL_ARGS = ["--dtype", "float32", "--batch_size", "64", "--seq_per_img", "4"]  # B = 256
@@ -5218,7 +5263,7 @@ def dp_pair(torch, card, counters, recorder, root, data_argv):
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env))
         lines = [ChildLines(p) for p in procs]
         lines[1].wait_for("the preemption run starts", PAIR_TIMEOUT_S)
-        lines[0].wait_for("iter 1,", 120)
+        lines[0].wait_for("iter 0,", 120)  # the signal lands in iteration 1
         t_sig = time.perf_counter()
         os.kill(procs[1].pid, signal.SIGTERM)
         for p in procs:
@@ -5770,9 +5815,10 @@ def phase17(torch, aa, card, counters):
     """Phase 17: the root pipeline_proxy.py's chain on the port, python -m
     recurrent_fusion_network_torch.pipeline_proxy --quick (PROXY_SEEDS
     seeds, the default untied profile) in this process: an XE fleet, an
-    SCST fleet from its best triples, the per-seed test CIDEr, the ensemble
-    of the rl_ best triples. The launches of every XE step, SCST rollout and
-    step and eval batch, each as the model's shape says, adding up to the
+    SCST fleet from its best triples (ending at iter rl_iters: a warm start
+    counts from 0), the per-seed test CIDEr, the ensemble of the rl_ best
+    triples. The launches of every XE step, SCST rollout and step and eval
+    batch, each as the model's shape says, adding up to the
     run's; every launch's shape checked against the plain versions; finite
     CIDEr fields, SCST's params moved, the -best and rl_-best triples in
     place; the ordering gates printed as they came out (--quick asserts
@@ -5785,7 +5831,7 @@ def phase17(torch, aa, card, counters):
 
     t0 = time.perf_counter()
     recorder, steps = ShapeRecorder(aa, hid=PROXY_HID), StepLaunches(counters)
-    wall, models = {run: 0.0 for run in PROXY_RUNS}, []
+    wall, models, scst = {run: 0.0 for run in PROXY_RUNS}, [], {}
 
     def timed(run, fn):
         def call(*a, **kw):
@@ -5796,6 +5842,9 @@ def phase17(torch, aa, card, counters):
             wall[run] += time.perf_counter() - t1
             if run == "proxy_xe":
                 models.append(out["model"])
+            if run == "proxy_scst":
+                scst.update(iter=out["iter"], epoch=out["epoch"],
+                            rewards_at=[sorted(h) for h in out["reward_histories"]])
             return out
 
         return call
@@ -5847,11 +5896,19 @@ def phase17(torch, aa, card, counters):
             for kind in ("model", "optimizer", "infos") for r in range(PROXY_SEEDS)}
     if not best <= files:
         raise AssertionError(f"proxy: triples missing {sorted(best - files)}")
+    # the SCST fleet counted its warm start from 0, as the JAX fleet does:
+    # rl_iters iterations, one rollout each a seed, the rewards from 0
+    rl_iters = written["rl_iters"]
+    if scst["iter"] != rl_iters or len(steps.calls["rollout"]) != PROXY_SEEDS * rl_iters \
+            or any(not h or h[0] != 0 or h[-1] >= rl_iters for h in scst["rewards_at"]):
+        raise AssertionError(f"proxy: the SCST fleet ended at {scst}, "
+                             f"{len(steps.calls['rollout'])} rollouts; expected iter {rl_iters}")
     gates = {g: written[g] for g in PROXY_GATES}
     log(f"proxy: XE test CIDEr {written['xe_test_cider']}, RL {written['rl_test_cider']}, "
         f"ensemble {written['ensemble_test_cider']}; SCST advantage "
         f"{written['scst_advantage']}; gates as they came out (--quick asserts none): {gates}")
-    log(f"proxy: launches (fwd, bwd) {total}, by run {by_run}, per call {per_kind}")
+    log(f"proxy: launches (fwd, bwd) {total}, by run {by_run}, per call {per_kind}; the SCST "
+        f"fleet ended at iter {scst['iter']} (epoch {scst['epoch']}) of rl_iters {rl_iters}")
 
     t1 = time.perf_counter()
     rows, bwd_rows = check_driver_sites(torch, aa, recorder, {"proxy": tuple(PROXY_RUNS)})
@@ -5859,6 +5916,7 @@ def phase17(torch, aa, card, counters):
     out = dict(result={k: v for k, v in written.items() if k != "rl_xe_delta_ci_per_seed"},
                delta_ci=written["rl_xe_delta_ci_per_seed"], gates=gates, per_call=per_kind,
                launches=by_run, wall_s={k: round(v, 2) for k, v in wall.items()},
+               scst_end=dict(iter=scst["iter"], epoch=scst["epoch"]),
                shape_check_s=shape_s, seconds=time.perf_counter() - t0)
     log(f"proxy: phase 17 in {out['seconds']:.2f} s: main {wall['main']:.2f} s, of it XE fleet "
         f"{wall['proxy_xe']:.2f}, SCST fleet {wall['proxy_scst']:.2f}, test CIDEr "

@@ -21,10 +21,9 @@ them, or "cpu"). Runs on the CUDA device unless ``--device cpu``:
   python -m recurrent_fusion_network_torch.pipeline_proxy --quick    # smoke run
 
 The result goes to ``--out`` (PIPELINE_PROXY_TORCH.json), never to the root
-script's PIPELINE_PROXY.json. The port's SCST fleet counts a warm start's
-iterations on from the XE triple's ``iter`` (the JAX fleet counts from 0),
-so the SCST phase runs to that ``iter`` + its iterations: as many as the
-root script's.
+script's PIPELINE_PROXY.json. The SCST fleet counts its warm start's
+iterations from 0, as the JAX fleet does, so it is given the root script's
+``max_iterations``: the SCST iterations themselves.
 """
 
 from __future__ import annotations
@@ -230,11 +229,9 @@ def main(argv=None):
     train_ids = loader2.split_image_id["train"]
     scorer = CiderD(compute_doc_freq(loader2.dataset, train_ids),
                     float(np.log(len(train_ids))))
-    # the fleet goes on from seed 0's XE best triple's iter
-    start = load_checkpoint(args.work_dir, "proxy", 0, best=True)[1]["iter"]
     print(f"[proxy] SCST fleet: {n_seeds} seeds x {rl_iters} iters")
     rl = train_multi_seed_rl(opt2, loader2, scorer, n_seeds,
-                             max_iterations=start + rl_iters, eval_at_end=True,
+                             max_iterations=rl_iters, eval_at_end=True,
                              log_fn=print)
     # non-vacuous SCST evidence: seed 0's final params differ from its warm
     # start (the XE best it loaded); the ordering gates alone pass with an

@@ -229,9 +229,15 @@ def load_checkpoint(checkpoint_path: str, run_id: str, rank: int = 0, *,
     model = _path(checkpoint_path, "model", run_id, rank, best, prefix)
     if not os.path.exists(model):
         raise FileNotFoundError(model)
+    return _load_pickle(model), load_infos(checkpoint_path, run_id, rank, best=best,
+                                           prefix=prefix)
+
+
+def load_infos(checkpoint_path: str, run_id: str, rank: int = 0, *,
+               best: bool = True, prefix: str = "") -> dict:
+    """The tag's infos alone (no params read), or {} where it has none."""
     infos = _path(checkpoint_path, "infos", run_id, rank, best, prefix)
-    return (_load_pickle(model),
-            _load_pickle(infos) if os.path.exists(infos) else {})
+    return _load_pickle(infos) if os.path.exists(infos) else {}
 
 
 def load_optimizer(checkpoint_path: str, run_id: str, rank: int = 0, *,

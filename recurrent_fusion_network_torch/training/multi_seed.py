@@ -28,11 +28,14 @@ captions from the state its solo run would find. The fleet stops early once ever
 (``num_eval_no_improve``), and saves its rolling triples at SIGTERM
 (``PreemptGuard``). An SCST seed warm-started from an XE ``-best`` that
 never beats its warm-start score ships that triple's weights and moments
-as its ``rl_``-best, so the ``rl_`` ensemble is complete. (The JAX SCST
-fleet counts a warm start's iterations from 0; the port's, as both solo
-loops, from the XE triple's ``iter``. Its reward history starts empty, as
-JAX's does, where the solo loops carry on the XE triple's loss history.)
-Both fleets' dicts hold the JAX fleets' keys (``Fleet.result``).
+as its ``rl_``-best, so the ``rl_`` ensemble is complete. An SCST
+fleet's warm start begins as the JAX fleet's (JAX multi_seed.py:653-680,
+:739-744): iteration and epoch 0, the loader as this process built it,
+every history empty; it takes from the XE triple only the params, under
+--load_lr the moments and the lr base, and under --load_best_score the
+best score. (The solo loops, in both packages, carry on the XE triple's
+count, loader and histories.) Both fleets' dicts hold the JAX fleets'
+keys (``Fleet.result``).
 
 Triples go through ``checkpoint.backend(opt)`` (pickle, or DCP directories
 under ``--checkpoint_backend orbax``); an SCST fleet with --spice_weight > 0
@@ -318,42 +321,48 @@ def train_multi_seed_rl(opt, loader, cider_scorer, n_seeds: int, *,
                         max_iterations: Optional[int] = None, eval_at_end: bool = True,
                         save: bool = True, log_fn=print, mesh=None):
     """Train an SCST fleet of ``n_seeds`` seeds on ``opt.device`` (CUDA
-    unless "cpu"). Seed r starts as solo ``train_rl(rank=r)`` does: a warm
-    start from its XE best triple ``model_{load_model_id}_{r}-best`` with
-    ``opt.start_from`` (``--load_lr`` adopts the moments and derives the lr
-    base), a resume from its rolling ``rl_`` triple under ``--rl_resume``,
-    or drawn from its generator. Each iteration: one batch copy, each
-    seed's fused sampled+greedy rollout, its host CIDEr-D reward, its
-    policy-gradient step. Returns the dict of ``train_multi_seed`` with
-    reward_histories (the mean rewards, which the solo loop records as its
-    loss_history) in place of loss_histories, and per seed
-    train_loss_histories, lr_histories and rl_lr_bases; a warm-started seed
-    that never beat its warm-start score has the XE best triple's params as
-    its best_params, as in JAX. ``mesh``: the fleet over ranks, as in
-    ``train_multi_seed``."""
+    unless "cpu"). Seed r starts from the state of solo ``train_rl(rank=r)``
+    (``start_rl_state``): a warm start from its XE best triple
+    ``model_{load_model_id}_{r}-best`` with ``opt.start_from`` (``--load_lr``
+    adopts the moments and derives the lr base), a resume from its rolling
+    ``rl_`` triple under ``--rl_resume``, or drawn from its generator. A
+    warm start counts as the JAX fleet's does, not as the solo loop's: from
+    iteration and epoch 0, on the loader as built, with every history
+    empty (only the best score comes from the triple), so
+    ``max_iterations`` counts SCST iterations. Each iteration: one batch
+    copy, each seed's fused sampled+greedy rollout, its host CIDEr-D
+    reward, its policy-gradient step. Returns the dict of
+    ``train_multi_seed`` with reward_histories (the mean rewards, which the
+    solo loop records as its loss_history) in place of loss_histories, and
+    per seed train_loss_histories, lr_histories and rl_lr_bases; a
+    warm-started seed that never beat its warm-start score has the XE best
+    triple's params as its best_params, as in JAX. ``mesh``: the fleet over
+    ranks, as in ``train_multi_seed``."""
     device = resolve_device(opt.device)
     opt.vocab_size = loader.vocab_size
     opt.seq_length = loader.seq_length
     model = setup(opt)
     rl_crit, tx = make_rl_criterion(opt), make_optimizer(opt)
     rl_resume = is_rl_resume(opt)
+    warm = opt.start_from is not None and not rl_resume
     ckpt = backend(opt)
     seeds = []
     for r in local_seeds(opt, n_seeds, mesh):
         params, opt_state, generator, infos, base = start_rl_state(
-            opt, model, tx, loader, r, device, log_fn)
+            opt, model, tx, loader, r, device, log_fn, restore_loader=not warm)
+        if warm:
+            # the JAX fleet's warm start: iteration and epoch 0, the loader
+            # as built, no history of the XE run (JAX multi_seed.py:739-744);
+            # the best score only (:671-672)
+            infos = {"best_val_score": infos.get("best_val_score")}
         seed = Seed(r, params, opt_state, generator,
                     Boundaries(opt, r, infos, prefix="rl_", resume_count=rl_resume), infos,
                     rl_lr_base=base)
-        if opt.start_from is not None and not rl_resume:
-            # a warm start's rewards begin empty, not with the XE triple's
-            # losses (JAX multi_seed.py:740; the solo loops keep them)
-            seed.loss_history = {}
         # the XE best triple this seed ships if it never beats its score: a
         # warm start's, or under --rl_resume the XE -best beside the rl_
         # triples where this run has no rl_-best yet (a fleet never
         # warm-started has none)
-        seed.ship_xe = opt.start_from is not None and (not rl_resume or (
+        seed.ship_xe = warm or (rl_resume and (
             not ckpt.has_checkpoint(opt.checkpoint_path, opt.id, r, best=True, prefix="rl_")
             and ckpt.has_checkpoint(opt.start_from, opt.load_model_id, r, best=True)))
         seeds.append(seed)

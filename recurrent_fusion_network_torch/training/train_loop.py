@@ -116,13 +116,13 @@ def grad_update(params, opt_state, tx, lr, loss_of, mesh=None):
 
 
 def resume(opt, model, loader, rank, device, *, best=False, prefix="",
-           with_opt_state=True):
+           with_opt_state=True, restore_loader=True):
     """-> (params, saved optimizer state or None, infos) of the checkpoint
     triple ``{prefix}..._{opt.load_model_id}_{rank}[-best]`` in
-    opt.start_from, on ``device``; the loader's state restored. The
-    optimizer file is read only ``with_opt_state``. The caller restores its
-    generator from ``infos[RNG_KEY]`` where it continues the run. The
-    triple is read through ``checkpoint.backend(opt)``."""
+    opt.start_from, on ``device``; with ``restore_loader`` the loader's
+    state restored. The optimizer file is read only ``with_opt_state``. The
+    caller restores its generator from ``infos[RNG_KEY]`` where it continues
+    the run. The triple is read through ``checkpoint.backend(opt)``."""
     ckpt = backend(opt)
     params_np, infos = ckpt.load_checkpoint(opt.start_from, opt.load_model_id, rank,
                                             best=best, prefix=prefix)
@@ -132,7 +132,7 @@ def resume(opt, model, loader, rank, device, *, best=False, prefix="",
     saved = (ckpt.load_optimizer(opt.start_from, opt.load_model_id, rank, best=best,
                                  prefix=prefix) if with_opt_state else None)
     opt_state = None if saved is None else opt_state_from_jax(saved, model)
-    if "iterators" in infos:
+    if restore_loader and "iterators" in infos:
         loader.restore_state(infos["iterators"], infos["split_image_id"],
                              infos.get("loader_rng"))
     if opt_state is not None:

@@ -155,21 +155,24 @@ def is_rl_resume(opt) -> bool:
     return bool(opt.rl_resume) and opt.start_from is not None
 
 
-def start_rl_state(opt, model, tx, loader, rank, device, log_fn=print):
+def start_rl_state(opt, model, tx, loader, rank, device, log_fn=print, *,
+                   restore_loader=True):
     """Rank ``rank``'s starting point of an SCST run: -> (params, opt_state,
     generator, infos, rl_lr_base). With ``opt.start_from``: a warm start
     from the rank's XE best triple (a fresh random stream, seed + rank) or,
     under --rl_resume, a resume from its ``rl_`` triple (stream, rl_lr_base
     and moments adopted); --load_lr derives the base from the XE lr history
     and adopts the moments. Without it the params are drawn from the
-    rank's generator."""
+    rank's generator. With ``restore_loader`` the triple's loader state is
+    restored."""
     generator = torch.Generator(device=device).manual_seed(opt.seed + rank)
     rl_resume = is_rl_resume(opt)
     infos, saved_state = {}, None
     if opt.start_from is not None:
         params, saved_state, infos = resume(
             opt, model, loader, rank, device, best=not rl_resume,
-            prefix="rl_" if rl_resume else "", with_opt_state=bool(opt.load_lr or rl_resume))
+            prefix="rl_" if rl_resume else "", with_opt_state=bool(opt.load_lr or rl_resume),
+            restore_loader=restore_loader)
         if rl_resume:  # a warm start keeps its own fresh stream
             restore_generator(generator, infos)
     else:

@@ -15,6 +15,7 @@ CIDEr-D.
 
 import os
 import pickle
+import re
 
 import jax
 import numpy as np
@@ -232,6 +233,109 @@ def test_scst_fleet_matches_the_jax_fleet(tmp_path, monkeypatch):
     _assert_fleet_params_close(j["params"], t["params"])
 
 
+XE_ITER, XE_EPOCH = 8, 1  # 8 batches of 4 of the 24 train images: an epoch and 2
+
+
+def _xe_best_triples(tmp, jopt, run_loader, seeds=(7, 8)):
+    """JAX-written per-seed XE best triples (params, no optimizer) as an XE
+    run leaves them XE_ITER steps and XE_EPOCH epochs in: ``run_loader``'s
+    cursor part-way through the shuffled train split with its random
+    states, the run's val and lr histories (min lr 2e-3)."""
+    for _ in range(XE_ITER):
+        run_loader.get_batch("train")
+    infos = {"iter": XE_ITER, "epoch": XE_EPOCH, "opt": dict(vars(jopt)),
+             "iterators": dict(run_loader.iterators),
+             "split_image_id": {s: list(v) for s, v in run_loader.split_image_id.items()},
+             "loader_rng": dict(run_loader.rng_states),
+             "loss_history": {0: 5.0, 4: 4.0}, "lr_history": {0: 4e-3, 4: 2e-3},
+             "val_result_history": {4: {"loss": 4.5, "lang_stats": None},
+                                    8: {"loss": 4.2, "lang_stats": None}},
+             "best_val_score": -1e9, "no_improve": 1}
+    assert 0 < infos["iterators"]["train"] < 24
+    jm = j_model(jopt)
+    for r, seed in enumerate(seeds):
+        p = jax.tree_util.tree_map(np.asarray, jm.init_params(jax.random.PRNGKey(seed)))
+        j_ckpt.save_checkpoint(str(tmp), "xe", r, params=p, best=True, infos=infos)
+    return infos
+
+
+def _rl_log(lines):
+    """(iteration, epoch) of each logged SCST iteration of a fleet's log."""
+    return [tuple(map(int, m.groups())) for line in lines
+            for m in [re.match(r"rl iter (\d+) \(epoch (\d+)\)", line)] if m]
+
+
+@pytest.mark.parametrize("stop", ["max_iterations", "max_epochs"])
+def test_scst_fleet_warm_start_counts_as_the_jax_fleet(tmp_path, monkeypatch, stop):
+    """Both fleets warm-started (--load_lr, a decay every epoch from 0) from
+    the same XE best triples XE_ITER steps and XE_EPOCH epochs in, their
+    loader cursor mid-split, their histories non-empty: both count from
+    iteration and epoch 0 on a fresh loader with empty histories, so
+    max_iterations 3 runs 3 SCST iterations, and max_epochs XE_EPOCH one
+    epoch of 6. The same (iteration, epoch) log, rewards, val keys, final
+    params (the lr and the batches) and rolling rl_ triples."""
+    _greedy_rollouts(monkeypatch)
+    kw = dict(caption_model="show_tell", use_baseline=0, save_checkpoint_every=2, load_lr=1,
+              learning_rate_decay_start=0, learning_rate_decay_every=1)
+    jopt, topt, jl, tl = _setups(tmp_path, **kw)
+    start = str(tmp_path / "start")
+    _xe_best_triples(start, jopt, _setups(tmp_path, **kw)[2])
+    logs = {"jax": [], "port": []}
+    for opt, name in ((jopt, "jax"), (topt, "port")):
+        opt.start_from, opt.load_model_id = start, "xe"
+        opt.checkpoint_path, opt.id = str(tmp_path / name), "f"
+        if stop == "max_epochs":
+            opt.max_epochs = XE_EPOCH
+    iters = 3 if stop == "max_iterations" else None
+    j = j_ms.train_multi_seed_rl(jopt, jl, _jax_scorer(jl), 2, max_iterations=iters,
+                                 log_fn=logs["jax"].append)
+    t = t_ms.train_multi_seed_rl(topt, tl, _scorer(tl), 2, max_iterations=iters,
+                                 log_fn=logs["port"].append)
+    n = 3 if stop == "max_iterations" else 6
+    assert _rl_log(logs["port"]) == _rl_log(logs["jax"]) == [
+        (i, int(stop == "max_epochs" and i == n - 1)) for i in range(n)]
+    assert (t["iter"], t["epoch"]) == (n, int(stop == "max_epochs"))
+    assert t["rl_lr_bases"] == [1e-3, 1e-3]
+    for r in range(2):
+        got, want = t["reward_histories"][r], j["reward_histories"][r]
+        assert sorted(got) == sorted(want) == list(range(n))
+        np.testing.assert_allclose([got[i] for i in range(n)], [want[i] for i in range(n)],
+                                   rtol=RTOL)
+        assert any(v > 0 for v in got.values())
+        assert sorted(t["val_histories"][r]) == sorted(j["val_histories"][r])
+        assert sorted(t["lr_histories"][r]) == list(range(n))
+        _, _, j_infos = j_ckpt.load_checkpoint(str(tmp_path / "jax"), "f", r, best=False,
+                                               prefix="rl_")
+        _, t_infos = t_ckpt.load_checkpoint(str(tmp_path / "port"), "f", r, best=False,
+                                            prefix="rl_")
+        # written at the last boundary, 2 or 4
+        assert t_infos["iter"] == j_infos["iter"] == {3: 3, 6: 5}[n]
+        for key in ("epoch", "iterators"):
+            assert t_infos[key] == j_infos[key], key
+    assert sorted(t["val_histories"][0]) == ([2, 3] if n == 3 else [2, 4, 6])
+    _assert_fleet_params_close(j["params"], t["params"])
+
+
+def test_solo_scst_warm_start_continues_the_xe_run(tmp_path):
+    """The solo loop, from the same XE best triple, carries on the XE run's
+    count, epoch, loader and histories, as JAX's solo loop does
+    (train_rl_loop.py:194-206): max_iterations XE_ITER + 2 runs 2
+    iterations, on the triple's train cursor."""
+    kw = dict(caption_model="show_tell", save_checkpoint_every=3, load_lr=1)
+    jopt, topt, jl, tl = _setups(tmp_path, **kw)
+    start = str(tmp_path / "start")
+    xe = _xe_best_triples(start, jopt, jl)
+    topt.start_from, topt.load_model_id = start, "xe"
+    topt.checkpoint_path, topt.id = str(tmp_path / "ck"), "s"
+    res = t_train_rl(topt, tl, _scorer(tl), rank=0, max_iterations=XE_ITER + 2, log_fn=quiet)
+    assert (res["iter"], res["epoch"]) == (XE_ITER + 2, XE_EPOCH)
+    assert sorted(res["loss_history"]) == [0, 4, 8, 9]
+    assert sorted(res["lr_history"]) == [0, 4, 8, 9] and res["rl_lr_base"] == 1e-3
+    assert sorted(res["val_result_history"]) == [4, 8, 9]  # the XE evals, then 9
+    assert tl.iterators["train"] == xe["iterators"]["train"] + 2 * 4
+    assert tl.split_image_id["train"] == xe["split_image_id"]["train"]
+
+
 def _assert_best_params_are_the_triples(res, ck, run_id, prefix=""):
     for r in range(2):
         saved, _ = t_ckpt.load_checkpoint(ck, run_id, r, best=True, prefix=prefix)
@@ -272,14 +376,16 @@ def test_fleet_results_hold_the_jax_keys(tmp_path, monkeypatch):
                                     log_fn=quiet)
     with monkeypatch.context() as m:
         _scores(m, {0: [0.6], 1: [0.1]})
-        t_rl = t_ms.train_multi_seed_rl(topt, tl, _scorer(tl), 2, max_iterations=2,
+        t_rl = t_ms.train_multi_seed_rl(topt, tl, _scorer(tl), 2, max_iterations=1,
                                         log_fn=quiet)
     assert set(j_rl) <= set(t_rl), set(j_rl) - set(t_rl)
-    # the warm start continues seed 0's XE triple (iter 2) for one SCST
-    # iteration; as in JAX (which counts from 0) the rewards start empty
-    assert "loss_histories" not in t_rl and t_rl["iter"] == 3
-    assert [sorted(h) for h in t_rl["reward_histories"]] == [[2], [2]]
-    assert [sorted(h) for h in j_rl["reward_histories"]] == [[0], [0]]
+    # both warm starts count from 0, not from the XE triple's iter 2: one
+    # SCST iteration, then the epilogue eval at 1, on empty histories
+    assert "loss_histories" not in t_rl and t_rl["iter"] == 1
+    assert [sorted(h) for h in t_rl["reward_histories"]] == [
+        sorted(h) for h in j_rl["reward_histories"]] == [[0], [0]]
+    assert [sorted(h) for h in t_rl["val_histories"]] == [
+        sorted(h) for h in j_rl["val_histories"]] == [[1], [1]]
     assert t_rl["cider_per_seed"] == [0.6, 0.9]
     _assert_best_params_are_the_triples(t_rl, t_ck, "f", prefix="rl_")
     xe_best, _ = t_ckpt.load_checkpoint(t_ck, "f", 1, best=True)
@@ -434,7 +540,10 @@ def test_scst_warm_start_ships_the_xe_best_of_a_seed_that_never_improves(xe_flee
     res = t_ms.train_multi_seed_rl(topt, tl, _scorer(tl), 2, max_iterations=6, log_fn=quiet)
     assert res["iter"] == 6 and res["rl_lr_bases"] == [topt.optim_lr / 2.0] * 2
     assert res["cider_per_seed"] == [1e9, 1e9]
-    assert sorted(res["val_histories"][0]) == [2, 4, 6]  # the XE best's eval, then 4, 6
+    # iterations 0..5 from the XE best (iter 3), the boundary at 4, the
+    # epilogue at 6: the histories hold this run's only
+    assert sorted(res["val_histories"][0]) == [4, 6]
+    assert sorted(res["reward_histories"][0]) == sorted(res["lr_histories"][0]) == list(range(6))
     for r in range(2):
         xe_p, _ = t_ckpt.load_checkpoint(ck, "xe", r, best=True)
         rl_p, infos = t_ckpt.load_checkpoint(ck, "xe", r, best=True, prefix="rl_")
@@ -500,8 +609,11 @@ def test_n_seeds_through_main_and_main_rl(tmp_path):
     assert xe["iter"] == 3 and len(xe["params"]) == 2
     rl = t_main_rl.main(common + ["--max_iterations", "5", "--start_from", ck,
                                   "--load_model_id", "cli", "--load_best_score", "0",
-                                  "--cider_df", str(tmp_path / "missing.p")])
+                                  "--cider_df", str(tmp_path / "missing.p"),
+                                  "--losses_log_every", "1"])
     assert rl["iter"] == 5 and all(s is not None for s in rl["cider_per_seed"])
+    # five SCST iterations counted from 0, not from the XE triples' iter
+    assert [sorted(h) for h in rl["reward_histories"]] == [[0, 1, 2, 3, 4]] * 2
     names = set(os.listdir(ck))
     for prefix in ("", "rl_"):
         for r in (0, 1):

@@ -156,6 +156,9 @@ def _stand_ins(tree, stack):
                 "best_params": [tree([1.0, -2.0, r]) for r in range(S)]}
 
     def rl_fleet(opt, loader, scorer, n_seeds, **kw):
+        # --quick's SCST iterations themselves: both fleets count a warm
+        # start's iterations from 0
+        assert kw["max_iterations"] == 40
         return {"params": stack([tree([1.0, -2.0, 0.5]) for _ in range(S)]),
                 "best_params": [tree([0.0, 0.0, r]) for r in range(S)],
                 "cider_per_seed": [0.6, 0.4, 0.7],
@@ -204,7 +207,7 @@ def test_main_equals_the_root_scripts_over_the_same_stand_ins(jax_result, tmp_pa
     monkeypatch.setattr(t_proxy, "train_multi_seed_rl", rl)
     monkeypatch.setattr(t_proxy, "test_cider", cider)
     monkeypatch.setattr(t_proxy, "load_checkpoint",
-                        lambda *a, **kw: ({"w": np.zeros(3, np.float32)}, {"iter": 61}))
+                        lambda *a, **kw: ({"w": np.zeros(3, np.float32)}, {}))
     monkeypatch.setattr(t_proxy, "eval_ensemble", ens)
     out = tmp_path / "port.json"
     t_proxy.main(["--quick", "--seeds", str(S), "--device", "cpu",
