@@ -1566,11 +1566,14 @@ class DriverProbe:
 
     def __init__(self, torch):
         from recurrent_fusion_network_torch.data import pinned
+        from recurrent_fusion_network_torch.utils import profiling
 
         self.torch = torch
         self.copier = pinned.copier(DEVICE)
         self.copier.timing = True
-        self.copier.timings, self.copier.host_ms = [], []
+        self.copier.timings = []
+        copies = profiling.aggregate("pinned.copy")
+        self.copies_before = copies.count if copies else 0  # the host's copy spans
         self.waits = []  # ms the host waited in each train fetch
         self.origin = torch.cuda.Event(enable_timing=True)
         self.origin.record()
@@ -1619,8 +1622,11 @@ class DriverProbe:
         ms in the copy call (train batches); the mean share of each copy
         that ran while the step queued before it still computed."""
         self.torch.cuda.synchronize()
+        from recurrent_fusion_network_torch.utils import profiling
+
         events, self.copier.timings = self.copier.timings, []
-        host_ms, self.copier.host_ms = self.copier.host_ms, []
+        host_ms = [r.value * 1e3 for r in profiling.aggregate("pinned.copy").after(
+            self.copies_before)]
         self.copier.timing = False
         gaps = [(b[0] - a[0]) * 1e3 for a, b in zip(self.fetches, self.fetches[1:])]
         steady = [g for k, (g, a, b) in enumerate(zip(gaps, self.fetches, self.fetches[1:]))

@@ -35,6 +35,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 
 from ..device import resolve_device
+from ..utils.profiling import span
 from .dataset import FLIP_TYPE_TO_VARIANT, Dataset
 from .pinned import PinnedRing
 
@@ -371,7 +372,8 @@ class DataLoader:
     def _get_prefetched(self, split: str):
         if split not in self._prefetchers:
             self._prefetchers[split] = _Prefetcher(self, split)
-        batch, state = self._prefetchers[split].get()
+        with span("loader.wait"):
+            batch, state = self._prefetchers[split].get()
         # expose iterator state consistent with batches CONSUMED, so
         # checkpointed iterators resume exactly (train.py:49-50 contract)
         self.iterators[split] = state["iterators"]
@@ -410,7 +412,8 @@ class _Prefetcher:
     def _run(self):
         while not self._stop.is_set():
             try:
-                batch = self.loader._assemble_batch(self.split)
+                with span("loader.fill"):
+                    batch = self.loader._assemble_batch(self.split)
             except Exception as e:  # surface IO/shape errors to the consumer
                 self._error = e  # set BEFORE the sentinel so get() never
                 self._put(("error", e))  # blocks on the dead thread's queue

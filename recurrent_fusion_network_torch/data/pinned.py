@@ -32,12 +32,13 @@ by its address.
 from __future__ import annotations
 
 import threading
-import time
 import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..utils.profiling import count, span
 
 SLOTS = 6  # page-locked batches per split at a time
 
@@ -146,45 +147,47 @@ def staged(array: np.ndarray):
 
 
 class SideStreamCopier:
-    """Host-to-device batch copies on a side stream of ``device``."""
+    """Host-to-device batch copies on a side stream of ``device``. Each
+    ``copy`` is the span ``pinned.copy`` (the host's time to queue it), an
+    on-the-fly pin inside it the span ``pinned.pin``, and its bytes the
+    counter ``h2d_bytes`` (``utils/profiling.py``)."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.stream = torch.cuda.Stream(device=device)
-        self.timing = False  # record every copy's events and host time
+        self.timing = False  # record every copy's start and end events
         self.timings: List[Tuple[torch.cuda.Event, torch.cuda.Event]] = []
-        self.host_ms: List[float] = []
 
     def copy(self, arrays: Sequence[np.ndarray]) -> List[torch.Tensor]:
         """numpy arrays -> device tensors, ready for the current stream's
         later work; the host does not wait for the copies."""
-        t0 = time.perf_counter()
-        compute = torch.cuda.current_stream(self.device)
-        slots, sources = [], []
-        for a in arrays:
-            hit = staged(a)
-            if hit is not None:
-                slots.append(hit[0])
-                sources.append(hit[1])
-            else:
-                sources.append(torch.from_numpy(np.ascontiguousarray(a)).pin_memory())
-        with torch.cuda.stream(self.stream):
-            start = torch.cuda.Event(enable_timing=True) if self.timing else None
+        with span("pinned.copy"):
+            compute = torch.cuda.current_stream(self.device)
+            slots, sources = [], []
+            for a in arrays:
+                hit = staged(a)
+                if hit is not None:
+                    slots.append(hit[0])
+                    sources.append(hit[1])
+                else:
+                    with span("pinned.pin"):
+                        sources.append(torch.from_numpy(np.ascontiguousarray(a)).pin_memory())
+            count("h2d_bytes", sum(s.nbytes for s in sources))
+            with torch.cuda.stream(self.stream):
+                start = torch.cuda.Event(enable_timing=True) if self.timing else None
+                if start is not None:
+                    start.record(self.stream)
+                out = [s.to(self.device, non_blocking=True) for s in sources]
+                done = torch.cuda.Event(enable_timing=self.timing)
+                done.record(self.stream)
             if start is not None:
-                start.record(self.stream)
-            out = [s.to(self.device, non_blocking=True) for s in sources]
-            done = torch.cuda.Event(enable_timing=self.timing)
-            done.record(self.stream)
-        if start is not None:
-            self.timings.append((start, done))
-        compute.wait_event(done)
-        for t in out:  # allocated on the side stream, used on the compute one
-            t.record_stream(compute)
-        for slot in slots:
-            slot.event = done
-        if self.timing:
-            self.host_ms.append((time.perf_counter() - t0) * 1e3)
-        return out
+                self.timings.append((start, done))
+            compute.wait_event(done)
+            for t in out:  # allocated on the side stream, used on the compute one
+                t.record_stream(compute)
+            for slot in slots:
+                slot.event = done
+            return out
 
 
 _COPIERS: Dict[torch.device, SideStreamCopier] = {}

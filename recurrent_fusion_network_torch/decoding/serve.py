@@ -25,6 +25,7 @@ import torch
 from ..device import resolve_device
 from ..ops.initializers import tree_map
 from ..parallel.mesh import join_blocks, with_dp_sharding
+from ..utils.profiling import count, span
 
 
 def _safe_result(fut: Future, value) -> None:
@@ -139,7 +140,10 @@ class CaptionServer:
     def submit(self, fcs: Sequence, atts: Sequence) -> Future:
         """Enqueue one image's per-encoder features ((D,) fc and (A, D) att
         per encoder); returns a Future resolving to that image's row of the
-        decode output tree."""
+        decode output tree. Its host time up to the queue put rides with the
+        request, and the worker records it under ``serve.submit`` as it takes
+        the batch: the client threads, which pace a bulk load, make no record."""
+        t0 = time.perf_counter()
         if self._closing.is_set():
             raise RuntimeError("server is closed")
         fcs = [torch.from_numpy(np.ascontiguousarray(x, np.float32)) for x in fcs]
@@ -159,7 +163,7 @@ class CaptionServer:
                     f"request feature shapes {spec} differ from the server's "
                     f"established contract {self._spec}")
         fut: Future = Future()
-        self._queue.put((fcs, atts, fut))
+        self._queue.put((fcs, atts, fut, time.perf_counter() - t0))
         # close() racing this submit: if the worker already exited, fail the
         # leftovers here; while it lives it still serves queued requests
         if self._closing.is_set() and not self._worker.is_alive():
@@ -193,7 +197,7 @@ class CaptionServer:
     def _drain_failed(self) -> None:
         while True:
             try:
-                *_, fut = self._queue.get_nowait()
+                _, _, fut, _ = self._queue.get_nowait()
             except queue.Empty:
                 break
             _safe_exception(fut, RuntimeError("server closed before dispatch"))
@@ -215,8 +219,13 @@ class CaptionServer:
                 self._resolve(*inflight.popleft())
             # park only when nothing is in flight; a quiet queue must not
             # delay delivering already-dispatched work
-            group = self._gather(park=not inflight)
+            with span("serve.gather") as gather:
+                group = self._gather(park=not inflight)
+                if not group:  # only the calls that return a batch count
+                    gather.drop()
             if group:
+                for g in group:
+                    count("serve.submit", g[3])
                 inflight.append(self._dispatch(group))
                 self.stats["batches"] += 1
                 self.stats["requests"] += len(group)
@@ -280,22 +289,25 @@ class CaptionServer:
             # smallest power-of-2 bucket holding the real rows: the host
             # stacks and uploads `bucket` rows, the device zero-fills the
             # rest (their outputs are discarded by _resolve)
-            bucket = (min(self.batch_size, 1 << (n - 1).bit_length()) if self.device_pad
-                      else self.batch_size)
-            rows_fc = [g[0] for g in group] + [group[-1][0]] * (bucket - n)
-            rows_att = [g[1] for g in group] + [group[-1][1]] * (bucket - n)
-            n_enc = len(rows_fc[0])
-            self.stats["h2d_rows"] += bucket
+            with span("serve.assemble"):
+                bucket = (min(self.batch_size, 1 << (n - 1).bit_length()) if self.device_pad
+                          else self.batch_size)
+                rows_fc = [g[0] for g in group] + [group[-1][0]] * (bucket - n)
+                rows_att = [g[1] for g in group] + [group[-1][1]] * (bucket - n)
+                n_enc = len(rows_fc[0])
+                self.stats["h2d_rows"] += bucket
+                if self.mesh is not None:
+                    fcs = [torch.stack([r[e] for r in rows_fc]) for e in range(n_enc)]
+                    atts = [torch.stack([r[e] for r in rows_att]) for e in range(n_enc)]
+                else:
+                    fcs = [self._upload([r[e] for r in rows_fc]) for e in range(n_enc)]
+                    atts = [self._upload([r[e] for r in rows_att]) for e in range(n_enc)]
+                    if bucket < self.batch_size:
+                        fcs, atts = self._pad_on_device(fcs), self._pad_on_device(atts)
             if self.mesh is not None:
-                fcs = [torch.stack([r[e] for r in rows_fc]) for e in range(n_enc)]
-                atts = [torch.stack([r[e] for r in rows_att]) for e in range(n_enc)]
                 out = [fn(*block) for fn, block in
                        zip(self.decode_fn, with_dp_sharding(self.mesh, (fcs, atts)))]
             else:
-                fcs = [self._upload([r[e] for r in rows_fc]) for e in range(n_enc)]
-                atts = [self._upload([r[e] for r in rows_att]) for e in range(n_enc)]
-                if bucket < self.batch_size:
-                    fcs, atts = self._pad_on_device(fcs), self._pad_on_device(atts)
                 out = self.decode_fn(fcs, atts)
         except Exception as e:  # malformed request / dispatch error:
             for f in futures:  # fail this batch only, keep the worker alive

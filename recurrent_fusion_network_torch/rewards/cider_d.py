@@ -26,6 +26,8 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
+from ..utils.profiling import span
+
 N_MAX = 4
 KEY_BASE = np.int64(1) << 15  # token ids must be < 32768
 _N_TAG = np.int64(1) << 60  # tells the n-gram orders apart in the key space
@@ -193,8 +195,31 @@ class CiderD:
         """Score each hypothesis against its reference set.
 
         ref_cache_keys: optional hashable per hypothesis naming its reference
-        set; a set shared by several hypotheses is vectorised once.
+        set; a set shared by several hypotheses is vectorised once. With the
+        native engine the checks and the flattening are the span
+        ``reward.prep``, the C++ scoring the span ``reward.native``.
         """
+        with span("reward.prep"):
+            self._check(hyps, refs_per_hyp)
+            if self._native_ctx is not None:
+                args, out = self._native_inputs(hyps, refs_per_hyp, ref_cache_keys)
+        if self._native_ctx is not None:
+            with span("reward.native"):
+                self._native.cider_score(self._native_ctx, *args, self._n_threads)
+            return out
+        cache: Dict = {}
+        scores = np.zeros(len(hyps))
+        for i, hyp in enumerate(hyps):
+            hv = self._vec(hyp)
+            ck = ref_cache_keys[i] if ref_cache_keys is not None else i
+            if ck not in cache:
+                cache[ck] = [self._vec(r) for r in refs_per_hyp[i]]
+            rvs = cache[ck]
+            scores[i] = sum(self._sim(hv, rv) for rv in rvs) / self.n / len(rvs) * 10.0
+        return scores
+
+    @staticmethod
+    def _check(hyps, refs_per_hyp) -> None:
         # ids >= KEY_BASE or < 0 would alias n-gram keys. The check runs on
         # every reward call, so it takes one min / max per distinct array
         # (seq_per_img expansion repeats the same reference array object)
@@ -218,20 +243,11 @@ class CiderD:
         for i, rs in enumerate(refs_per_hyp):
             if len(rs) == 0:
                 raise ValueError(f"empty reference set for hypothesis {i}")
-        if self._native_ctx is not None:
-            return self._score_native(hyps, refs_per_hyp, ref_cache_keys)
-        cache: Dict = {}
-        scores = np.zeros(len(hyps))
-        for i, hyp in enumerate(hyps):
-            hv = self._vec(hyp)
-            ck = ref_cache_keys[i] if ref_cache_keys is not None else i
-            if ck not in cache:
-                cache[ck] = [self._vec(r) for r in refs_per_hyp[i]]
-            rvs = cache[ck]
-            scores[i] = sum(self._sim(hv, rv) for rv in rvs) / self.n / len(rvs) * 10.0
-        return scores
 
-    def _score_native(self, hyps, refs_per_hyp, ref_cache_keys):
+    @staticmethod
+    def _native_inputs(hyps, refs_per_hyp, ref_cache_keys):
+        """(the native ``cider_score``'s arguments between its context and
+        its thread count, the scores array it fills)."""
         n_hyp = len(hyps)
         group_of: Dict = {}
         groups: List = []
@@ -269,10 +285,8 @@ class CiderD:
         out = np.zeros(n_hyp, np.float64)
         i64 = ctypes.POINTER(ctypes.c_int64)
         i32 = ctypes.POINTER(ctypes.c_int32)
-        self._native.cider_score(
-            self._native_ctx,
-            hyp_flat.ctypes.data_as(i32), hyp_off.ctypes.data_as(i64), n_hyp,
-            ref_flat.ctypes.data_as(i32), ref_off.ctypes.data_as(i64), len(all_refs),
-            group_off.ctypes.data_as(i64), len(groups), hyp_group.ctypes.data_as(i64),
-            out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), self._n_threads)
-        return out
+        # each pointer keeps its array alive until the call
+        return (hyp_flat.ctypes.data_as(i32), hyp_off.ctypes.data_as(i64), n_hyp,
+                ref_flat.ctypes.data_as(i32), ref_off.ctypes.data_as(i64), len(all_refs),
+                group_off.ctypes.data_as(i64), len(groups), hyp_group.ctypes.data_as(i64),
+                out.ctypes.data_as(ctypes.POINTER(ctypes.c_double))), out

@@ -60,7 +60,7 @@ from ..parallel.distributed import all_hosts_agree, barrier, host_mean
 from ..parallel.mesh import (gather_opt_state_2d, gather_params_2d, is_mesh_2d,
                              shard_opt_state_2d, shard_params_2d)
 from ..utils.logging import JsonlLogger
-from ..utils.profiling import TraceWindow
+from ..utils.profiling import TraceWindow, span
 from .checkpoint import assert_arch_matches, backend, cast_tree, writes_here
 from .criterion import make_criterion
 from .optim import (apply_updates, lr_for_epoch, make_optimizer, ss_prob_for_epoch,
@@ -346,7 +346,8 @@ def train(opt, loader, *, rank: int = 0, max_iterations: Optional[int] = None,
         nonlocal params, opt_state
         data = loader.get_batch("train")
         batch = device_batch(data, device, compute_dtype)
-        params, opt_state, loss = train_step(params, opt_state, *batch, lr, ss_prob, draws)
+        with span("train.dispatch"):
+            params, opt_state, loss = train_step(params, opt_state, *batch, lr, ss_prob, draws)
         return data, loss
 
     def snapshot_infos():
@@ -379,7 +380,8 @@ def train(opt, loader, *, rank: int = 0, max_iterations: Optional[int] = None,
             is_eval = iteration % opt.save_checkpoint_every == 0 and iteration > 0
             is_log = iteration % opt.losses_log_every == 0
             if is_eval or is_log:
-                train_loss = float(loss)
+                with span("train.loss_read"):
+                    train_loss = float(loss)
                 elapsed = time.time() - start
             if is_log:
                 loss_history[iteration] = train_loss
@@ -421,7 +423,8 @@ def train(opt, loader, *, rank: int = 0, max_iterations: Optional[int] = None,
                 schedule()
                 pending = dispatch()
             if train_loss is None:
-                train_loss = float(loss)  # waits for step k only
+                with span("train.loss_read"):
+                    train_loss = float(loss)  # waits for step k only
                 elapsed = time.time() - start
             if not stop:
                 log_fn(f"rank {rank}, iter {iteration}, (epoch {epoch}), train loss: "

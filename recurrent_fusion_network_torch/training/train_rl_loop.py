@@ -71,7 +71,7 @@ from ..ops.cells import RowShard
 from ..parallel.distributed import all_hosts_agree, host_mean
 from ..parallel.mesh import MP_RL
 from ..utils.logging import JsonlLogger
-from ..utils.profiling import TraceWindow
+from ..utils.profiling import TraceWindow, span
 from .checkpoint import backend
 from .criterion import make_rl_criterion
 from .optim import lr_for_epoch, make_optimizer, state_fits
@@ -256,7 +256,8 @@ def train_rl(opt, loader, cider_scorer: CiderD, *, rank: int = 0,
     def fetch_and_roll_out():
         data = loader.get_batch("train")
         fc, att, _, _, top_words = device_batch(data, device)
-        seq, greedy_seq = rollout_fn(params, fc, att, draws)
+        with span("rl.rollout"):
+            seq, greedy_seq = rollout_fn(params, fc, att, draws)
         return data, fc, att, top_words, seq, greedy_seq
 
     def snapshot_infos():
@@ -286,22 +287,25 @@ def train_rl(opt, loader, cider_scorer: CiderD, *, rank: int = 0,
                 data, fc, att, top_words, seq, greedy_seq = fetch_and_roll_out()
             else:
                 (data, fc, att, top_words, seq, greedy_seq), pending = pending, None
+            with span("rl.rollout_read"):
+                seq_host, greedy_host = seq.cpu().numpy(), greedy_seq.cpu().numpy()
             rewards = compute_reward(
-                cider_scorer, seq.cpu().numpy(), greedy_seq.cpu().numpy(), data["gts"],
+                cider_scorer, seq_host, greedy_host, data["gts"],
                 use_baseline=bool(opt.use_baseline), cider_weight=opt.cider_weight,
                 bleu4_weight=opt.bleu4_weight, spice_weight=opt.spice_weight,
                 spice_fn=spice_fn)
             reward_dev = torch.as_tensor(rewards, dtype=torch.float32, device=device)
 
-            if opt.use_ppo:
-                slp_old = old_logprobs_fn(params, fc, att, seq)
-                for _ in range(opt.ppo_k + 1):
+            with span("rl.dispatch"):
+                if opt.use_ppo:
+                    slp_old = old_logprobs_fn(params, fc, att, seq)
+                    for _ in range(opt.ppo_k + 1):
+                        params, opt_state, loss = rl_step(params, opt_state, fc, att, seq,
+                                                          reward_dev, top_words, lr, slp_old)
+                else:  # the criterion reads no old log-probs without PPO
                     params, opt_state, loss = rl_step(params, opt_state, fc, att, seq,
-                                                      reward_dev, top_words, lr, slp_old)
-            else:  # the criterion reads no old log-probs without PPO
-                params, opt_state, loss = rl_step(params, opt_state, fc, att, seq,
-                                                  reward_dev, top_words, lr,
-                                                  torch.zeros_like(reward_dev))
+                                                      reward_dev, top_words, lr,
+                                                      torch.zeros_like(reward_dev))
 
             if data["bounds"]["wrapped"]:
                 epoch += 1

@@ -15,6 +15,7 @@ import torch
 
 from recurrent_fusion_network_torch.data import pinned
 from recurrent_fusion_network_torch.data.synthetic import synthetic_setup
+from recurrent_fusion_network_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -78,6 +79,14 @@ def test_staging_ring_under_thread_switches_gives_the_unstaged_batches():
     assert threads and not any(t.is_alive() for t in threads)
 
 
+def _added(before, after):
+    """(records, value) each span or counter added between two reads of the
+    tracer's aggregates, by name."""
+    none = profiling.Aggregate(0, 0, 0, 0, ())
+    return {name: (a.count - before.get(name, none).count,
+                   a.total - before.get(name, none).total) for name, a in after.items()}
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -119,7 +128,8 @@ def test_pinned_staging_gives_the_unstaged_batches_on_the_card(cuda, prefetch,
 def test_device_batch_pins_unstaged_arrays_and_does_not_wait(cuda):
     data = _loader(False).get_batch("train")
     copier = pinned.copier("cuda")
-    copier.timing, copier.timings, copier.host_ms = True, [], []
+    copier.timing, copier.timings = True, []
+    before = profiling.aggregates()
     try:
         fc, att, labels, masks, top = pinned.device_batch(data, "cuda", torch.bfloat16)
         assert fc[0].dtype == torch.bfloat16 and labels.dtype == torch.int64
@@ -128,6 +138,29 @@ def test_device_batch_pins_unstaged_arrays_and_does_not_wait(cuda):
         assert torch.equal(top.cpu(), torch.from_numpy(data["top_words"]))
         [(start, done)] = copier.timings
         done.synchronize()
-        assert start.elapsed_time(done) >= 0.0 and len(copier.host_ms) == 1
+        assert start.elapsed_time(done) >= 0.0
+        # one copy, every array pinned on the fly, its bytes counted
+        added = _added(before, profiling.aggregates())
+        assert added["pinned.copy"][0] == 1 and added["pinned.pin"][0] == len(_host(data))
+        assert added["h2d_bytes"] == (1, sum(a.nbytes for a in _host(data)))
     finally:
         copier.timing = False
+
+
+@pytest.mark.cuda
+def test_a_staged_batch_pins_only_its_labels_on_the_fly(cuda):
+    """The copy of a batch from the staging ring is one ``pinned.copy``
+    span; only the arrays outside the ring (labels, masks, top words) are
+    pinned on the fly (``pinned.pin``); ``h2d_bytes`` counts every byte."""
+    loader = _loader(False, device="cuda")
+    try:
+        data = loader.get_batch("train")
+        before = profiling.aggregates()
+        out = pinned.device_batch(data, "cuda")
+        torch.cuda.synchronize()
+        added = _added(before, profiling.aggregates())
+        assert added["pinned.copy"][0] == 1 and added["pinned.pin"][0] == 3
+        assert added["h2d_bytes"] == (1, sum(a.nbytes for a in _host(data)))
+        assert torch.equal(out[2].cpu(), torch.from_numpy(data["labels"]))
+    finally:
+        loader.close()
